@@ -1,25 +1,37 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full width: 1M frames, 7,000 reps
+    python3 chip_smoke.py            # full width: 1M frames, 7,000 reps,
+                                     # h2o-danube-3-4b on a 32,768-token prompt
 
 1. Prints the card (nvidia-smi), builds every CUDA kernel of the port from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes and times kernel, plain version and, where one PyTorch
+   paths' shapes and times kernel, plain version and, where one PyTorch
    call computes the same function, that call (``library_ms``).
-3. Builds a TASTI index (``build_tasti``, variant PT, seeded random embedder
-   weights) over the synthetic night-street video at 1M frames and serves a
-   three-query session twice through a cracking ``QueryEngine`` with
-   resident scoring, counting each kernel's launches on that path.
+3. tasti: builds a TASTI index (``build_tasti``, variant PT, seeded random
+   embedder weights) over the synthetic night-street video at 1M frames and
+   serves a three-query session twice through a cracking ``QueryEngine``
+   with resident scoring.
+4. lm_prefill: h2o-danube-3-4b at its published widths (seeded random bf16
+   weights) through ``make_prefill_step`` on one 32,768-token prompt, every
+   attention layer through the ``flash_attention`` kernel; the same model on
+   2,048 tokens against the plain attention route, in bf16 and with the
+   weights cast to float32.
+5. lm_serve: the ``serve_lm`` path (replay prefill, greedy decode) at the
+   same width, batch 4, prompt 32, 16 decode steps.
+6. embedder: the transformer embedder (``tasti-embedder``, seeded random
+   weights) over the night-street records, attention through the kernel.
 
-Prints per-phase seconds, a JSON line of per-kernel numbers, and as its last
-line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
-that line.  Imports nothing of JAX.
+Each path's kernel launches are counted from 0 just before it runs.  Prints
+per-phase seconds, a JSON line of per-kernel numbers, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
+line.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -32,8 +44,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet peaks (float32 without tensor cores; HBM3)
+# H100 SXM data sheet peaks (float32 without tensor cores; dense bf16/f16
+# tensor cores; HBM3)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 
@@ -56,9 +70,9 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -239,16 +253,320 @@ def check_propagate(dev, n: int, c: int, k: int, n_classes: int = 9):
             "bound_by": by, "library_ms": None, "modes": modes}
 
 
+def attention_pairs(s: int, skv: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one (batch, head): the work this
+    input needs (a row with no key left needs none)."""
+    qpos = np.arange(s)
+    hi = np.minimum(qpos, skv - 1) if causal else np.full(s, skv - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(s, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_bound(b, s, skv, h, hk, hd, dtype, causal, window):
+    """(bound ms, what bounds it, flops): 4 * hd flops per unmasked pair
+    over the peak for the input type, against q, k, v read once and the
+    output written once."""
+    n_flops = 4.0 * hd * b * h * attention_pairs(s, skv, causal, window)
+    item = torch.finfo(dtype).bits // 8
+    n_bytes = item * hd * (2 * b * s * h + 2 * b * skv * hk)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    return (*bound_ms(n_bytes, n_flops, peak), n_flops)
+
+
+# Kernel against plain attention: float32 at the JAX package's kernel-test
+# tolerance (2e-3, tests/test_kernels.py); bf16 held to bf16 rounding, not to
+# the size of the values: both routes compute in float32 and round once, so
+# they differ by an ulp or two (2^-8 relative).  With q, k, v ~ N(0, 1) an
+# output over n keys is ~sqrt(e / n) (0.026 at n = 4,096), so the reference's
+# 3e-2 would pass a kernel that dropped or doubled a 64-key tile.
+ATTN_TOL = {torch.float32: {"rtol": 2e-3, "atol": 2e-3},
+            torch.bfloat16: {"rtol": 1.6e-2, "atol": 2e-3}}
+
+
+def check_flash_attention(dev, label: str, b: int, s: int, h: int, hk: int,
+                          hd: int, dtype, causal: bool, window: int,
+                          library: bool = False, iters: int = 5):
+    """The kernel against its plain version on the same inputs, within
+    ``ATTN_TOL``; kernel and plain ms; with ``library``,
+    ``scaled_dot_product_attention`` (GQA, the same boolean band mask) as a
+    yardstick."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    q = torch.randn(b, s, h, hd, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dtype)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    del got, want
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                         window=window), iters)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window), 2)
+    lib_ms = None
+    if library:
+        import torch.nn.functional as F
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        qpos = torch.arange(s, device=dev)[:, None]
+        kpos = torch.arange(s, device=dev)[None, :]
+        mask = torch.ones(s, s, dtype=torch.bool, device=dev)
+        if causal:
+            mask &= qpos >= kpos
+        if window:
+            mask &= qpos - kpos < window
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+        del qt, kt, vt, mask
+    bnd, by, flops = attention_bound(b, s, s, h, hk, hd, dtype, causal,
+                                     window)
+    log(f"flash_attention[{label}] q {(b, s, h, hd)} kv heads {hk} "
+        f"{str(dtype)[6:]} causal={causal} window={window}: max_abs_err "
+        f"{err:.3g} (tol rtol {tol['rtol']:g} atol {tol['atol']:g}), kernel "
+        f"{ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library "
+        f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    return {"label": label, "shape": [b, s, h, hk, hd], "dtype":
+            str(dtype)[6:], "causal": causal, "window": window,
+            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
+
+
+def time_flash_full(dev, cfg, seq: int, iters: int = 2):
+    """One kernel launch at a full-width prefill layer's shape (no plain
+    comparison: its (H, S, S) float32 scores would not fit)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=dev).manual_seed(7)
+    hd, h, hk = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = torch.randn(1, seq, h, hd, device=dev, generator=g).bfloat16()
+    k = torch.randn(1, seq, hk, hd, device=dev, generator=g).bfloat16()
+    v = torch.randn(1, seq, hk, hd, device=dev, generator=g).bfloat16()
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                         window=cfg.sliding_window), iters)
+    bnd, by, flops = attention_bound(1, seq, seq, h, hk, hd, torch.bfloat16,
+                                     True, cfg.sliding_window)
+    log(f"flash_attention[prefill {seq}] one launch {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bnd:.4f} ms ({by})")
+    return {"seq": seq, "ms": ms, "bound_ms": bnd, "bound_by": by}
+
+
+# Logits of the bf16 model along two attention routes: one bf16 ulp (2^-8
+# relative) of a differently rounded activation grows through 24 residual
+# layers, and random weights leave near-ties among 32,000 logits that this
+# noise flips.  So the kernel route is held against what rounding alone
+# gives: the plain route against itself with its softmax and P.V sums taken
+# in another order (keys reversed).  The kernel route may differ from the
+# plain one by no more than WITNESS_RATIO times the witness's mean |d logit|,
+# and agree on top-1 no less than the witness does, less WITNESS_TOP1_SLACK;
+# BF16_LOGITS_MEAN is an absolute backstop.  In float32 rounding no longer
+# hides the function: F32_LOGITS_TOL and top-1 >= 99% hold there.
+BF16_LOGITS_MAX, BF16_LOGITS_MEAN = 0.25, 0.03
+WITNESS_RATIO, WITNESS_TOP1_SLACK = 2.0, 0.02
+F32_LOGITS_TOL = 1e-2
+
+
+def check_logits(cmp: dict, what: str) -> None:
+    assert cmp["max_abs"] <= BF16_LOGITS_MAX and \
+        cmp["mean_abs"] <= BF16_LOGITS_MEAN, (what, cmp)
+
+
+def logits_agreement(got: torch.Tensor, want: torch.Tensor, vocab: int):
+    """(max abs diff, mean abs diff, top-1 agreement) over real vocab."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    diff = (got - want).abs()
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    return float(diff.max()), float(diff.mean()), float(top1)
+
+
+def plain_attention_keys_reversed(q, k, v, causal: bool = True,
+                                  window: int = 0):
+    """``flash_attention_ref`` with the key axis reversed: the same
+    function, its softmax and P.V sums taken in the other order."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    b, s, h, hd = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, hk, h // hk, hd).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", qg,
+                          k.flip(1).float()) / math.sqrt(hd)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(skv - 1, -1, -1, device=q.device)[None, :]
+    mask = torch.ones((s, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    scores.masked_fill_(~mask, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", p, v.flip(1).float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def compare_routes(cfg, params, tokens, prefill, prefill_plain) -> dict:
+    """Kernel route against plain route over ``tokens``: in bf16 as served,
+    with the keys-reversed plain route as the witness of rounding alone, and
+    with the same weights cast to float32."""
+    from unittest import mock
+
+    from repro_torch.models import attention
+    from repro_torch.models.common import tree_map
+    short = {"tokens": tokens}
+    out = {"tokens": tokens.shape[1]}
+    lp = prefill_plain(params, short)
+    for name in ("bf16", "witness"):
+        if name == "bf16":
+            lx = prefill(params, short)
+        else:
+            with mock.patch.object(attention, "flash_attention_ref",
+                                   plain_attention_keys_reversed):
+                lx = prefill_plain(params, short)
+        mx, mean, top1 = logits_agreement(lx, lp, cfg.vocab_size)
+        out[name] = {"max_abs": mx, "mean_abs": mean, "top1": top1}
+        del lx
+    del lp
+    p32 = tree_map(lambda a: a.float(), params)
+    lk, lp = prefill(p32, short), prefill_plain(p32, short)
+    mx, mean, top1 = logits_agreement(lk, lp, cfg.vocab_size)
+    out["f32"] = {"max_abs": mx, "mean_abs": mean, "top1": top1}
+    del lk, lp, p32
+    torch.cuda.empty_cache()
+    for name, what in (("bf16", "kernel vs plain"),
+                       ("witness", "plain keys reversed vs plain"),
+                       ("f32", "kernel vs plain, weights cast to float32")):
+        c = out[name]
+        log(f"lm_prefill compare {out['tokens']} tokens, {name} ({what}): "
+            f"max |d logits| {c['max_abs']:.4g}, mean {c['mean_abs']:.4g}, "
+            f"top-1 agreement {c['top1']:.5f}")
+    bf, wit, f32 = out["bf16"], out["witness"], out["f32"]
+    assert bf["mean_abs"] <= min(WITNESS_RATIO * wit["mean_abs"],
+                                 BF16_LOGITS_MEAN), (bf, wit)
+    assert bf["top1"] >= wit["top1"] - WITNESS_TOP1_SLACK, (bf, wit)
+    assert f32["max_abs"] <= F32_LOGITS_TOL and f32["top1"] >= 0.99, f32
+    return out
+
+
+def run_lm(dev, prefill_len: int, compare_len: int, profile):
+    """lm_prefill, lm_serve and lm_decode_window at h2o-danube-3-4b's
+    published widths."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config("h2o-danube-3-4b")
+    n_attn = cfg.n_repeats * sum(sp.mixer == "attn" for sp in cfg.pattern)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, g, device=dev)
+    torch.cuda.synchronize()
+    log(f"lm init: {cfg.name}, {cfg.param_count() / 1e9:.3f}B parameters (bf16, "
+        f"seeded), {time.perf_counter() - t0:.2f} s")
+    prefill = make_prefill_step(cfg)
+    prefill_plain = make_prefill_step(cfg, attn_impl="plain")
+    tokens = torch.randint(0, cfg.vocab_size, (1, prefill_len), device=dev,
+                           generator=g)
+
+    # the kernel route against the plain route on a prompt longer than the
+    # window, so that its mask and the key-tile skipping take effect (this
+    # also warms cuBLAS and the kernel up before the timed prefill)
+    compare = compare_routes(cfg, params, tokens[:, :compare_len], prefill,
+                             prefill_plain)
+
+    flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("lm_prefill", profile) as ph:
+        logits = prefill(params, {"tokens": tokens})
+    prefill_launches = flash_attention.launches
+    prefill_s = ph.seconds
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase lm_prefill: {prefill_len} tokens in {ph.seconds:.3f} s "
+        f"({prefill_len / ph.seconds:.1f} tok/s), logits "
+        f"{tuple(logits.shape)} finite={finite}, flash launches "
+        f"{prefill_launches}, peak device memory {peak:.2f} GiB")
+    assert logits.shape == (1, prefill_len, cfg.padded_vocab), logits.shape
+    assert finite
+    assert prefill_launches == n_attn, (prefill_launches, n_attn)
+    del logits
+
+    # lm_serve: replay prefill + greedy decode, batch 4, prompt 32 (a smoke
+    # size: the cache holds 48 of the window's 4,096 keys)
+    prompts = torch.randint(1, cfg.vocab_size, (4, 32), device=dev,
+                            generator=g)
+    flash_attention.launches = 0
+    with Phase("lm_serve", profile) as ph:
+        out = serve_lm.serve(params, cfg, prompts, decode_steps=16)
+    serve_launches = flash_attention.launches
+    par = prefill(params, {"tokens": prompts})[:, -1]
+    smx, smean, stop1 = logits_agreement(out["last_logits"], par,
+                                         cfg.vocab_size)
+    serve_cmp = {"max_abs": smx, "mean_abs": smean, "top1": stop1}
+    tok_s = prompts.shape[0] * 16 / out["decode_s"]
+    log(f"phase lm_serve: {ph.seconds:.3f} s; replay prefill "
+        f"{out['prefill_s']:.3f} s, decode 16 steps x batch 4 "
+        f"{out['decode_s']:.3f} s ({tok_s:.1f} tok/s, smoke size); flash "
+        f"launches {serve_launches} (the decode path runs plain attention, as "
+        f"the reference's does); replay vs lm_logits at the last prompt "
+        f"position: max |d| {smx:.4g}, mean {smean:.4g}, top-1 {stop1:.3f}")
+    check_logits(serve_cmp, "lm_serve replay vs lm_logits")
+
+    # lm_decode_window: decode with the window full.  Seeded random keys
+    # and values in 4,096 cache slots stand in for a replayed 4,096-token
+    # prompt (the replay alone would take minutes); then 16 greedy steps
+    # at positions 4,096.., each attending to the window's 4,096 keys.
+    ctx, steps = cfg.sliding_window or 4096, 16
+    caches = lm.init_cache(cfg, prompts.shape[0], ctx + steps, device=dev)
+    for layer in caches:
+        for t in layer.values():
+            t.normal_(generator=g)
+    step = make_serve_step(cfg)
+    tok = prompts[:, -1:]
+    flash_attention.launches = 0
+    with Phase("lm_decode_window", profile) as ph:
+        for t in range(steps):
+            lg, caches = step(params, caches, tok, ctx + t)
+            tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1)
+    window_launches = flash_attention.launches
+    win_tok_s = prompts.shape[0] * steps / ph.seconds
+    log(f"phase lm_decode_window: {steps} steps x batch {prompts.shape[0]} "
+        f"at cache {ctx} in {ph.seconds:.3f} s ({win_tok_s:.1f} tok/s, "
+        f"{1e3 * ph.seconds / steps:.2f} ms per step); flash launches "
+        f"{window_launches}")
+    assert bool(torch.isfinite(lg).all())
+    del caches
+    return {"prefill": {"tokens": prefill_len, "seconds": prefill_s,
+                        "launches": prefill_launches, "peak_gib": peak,
+                        "compare": compare},
+            "serve": {"launches": serve_launches, "decode_tok_s": tok_s,
+                      "decode_s": out["decode_s"],
+                      "replay_prefill_s": out["prefill_s"], **serve_cmp},
+            "decode_window": {"cache": ctx, "steps": steps,
+                              "batch": prompts.shape[0],
+                              "seconds": ph.seconds, "tok_s": win_tok_s,
+                              "launches": window_launches},
+            "cfg": cfg}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
     ap.add_argument("--reps", type=int, default=7000)
     ap.add_argument("--check-rows", type=int, default=65536,
                     help="rows of the distance_topk plain comparison")
+    ap.add_argument("--prefill-len", type=int, default=32768,
+                    help="prompt length of the full-width lm_prefill")
+    ap.add_argument("--compare-len", type=int, default=8192,
+                    help="prompt length of the kernel-vs-plain LM comparison "
+                         "(above the 4,096 window by default)")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace build_tasti and the first session with "
-                         "torch.profiler into DIR and print each phase's "
-                         "device busy share")
+                    help="trace build_tasti, the first session, lm_prefill, "
+                         "lm_serve, lm_decode_window and the embedder with "
+                         "torch.profiler into "
+                         "DIR and print each phase's device busy share")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -275,6 +593,8 @@ def main(argv=None) -> None:
     from repro_torch.core.schema import make_workload
     from repro_torch.core.session import QuerySession
     from repro_torch.kernels.distance_topk.ops import distance_topk
+    from repro_torch.core.embedder import embed_all
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.fpf_update.ops import fpf_update
     from repro_torch.kernels.propagate.ops import propagate
 
@@ -287,6 +607,21 @@ def main(argv=None) -> None:
                             cfg.embed_dim, cfg.k, args.frames),
         check_fpf_update(dev, args.frames, cfg.embed_dim),
         check_propagate(dev, args.frames, cfg.n_reps, cfg.k),
+    ]
+    # flash_attention at (a) a danube-3-4b layer (GQA 32/8, hd 120, bf16,
+    # causal, window 4096), and the same in float32 (a32), where a wrong
+    # window edge or key-tile skip cannot hide in rounding; (b) the
+    # transformer embedder's batch (f32, bidirectional, S 8, hd 64), (c) a
+    # ragged S that is no tile multiple
+    flash = [
+        check_flash_attention(dev, "a", 1, 8192, 32, 8, 120, torch.bfloat16,
+                              True, 4096, library=True),
+        check_flash_attention(dev, "a32", 1, 8192, 32, 8, 120, torch.float32,
+                              True, 4096),
+        check_flash_attention(dev, "b", 65536, 8, 4, 4, 64, torch.float32,
+                              False, 0),
+        check_flash_attention(dev, "c", 2, 1000, 8, 2, 64, torch.float32,
+                              True, 0),
     ]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -351,10 +686,61 @@ def main(argv=None) -> None:
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     assert all(v > 0 for v in launches.values()), launches
     assert engine.stats["proxy_device_computes"] > 0, engine.stats
+    del engine, system, index
+    torch.cuda.empty_cache()
+
+    lm_out = run_lm(dev, args.prefill_len, args.compare_len, args.profile)
+    torch.cuda.empty_cache()
+    flash_full = time_flash_full(dev, lm_out["cfg"], args.prefill_len)
+    torch.cuda.empty_cache()
+
+    # embedder: the transformer backbone over the night-street records
+    tcfg = EmbedderConfig(feature_dim=wl.features.shape[1],
+                          embed_dim=cfg.embed_dim, backbone="tasti-embedder")
+    model = Embedder(tcfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    batch = 65536
+    flash_attention.launches = 0
+    with Phase("embedder", args.profile) as ph:
+        emb = embed_all(model, wl.features, batch=batch)
+    emb_launches = flash_attention.launches
+    n_check = min(batch, args.frames)
+    with torch.no_grad():
+        plain = model(torch.as_tensor(wl.features[:n_check], device=dev),
+                      attn_impl="plain").cpu().numpy()
+    emb_err = float(np.abs(emb[:n_check] - plain).max())
+    want_launches = -(-args.frames // batch) * model.backbone.n_layers
+    log(f"phase embedder: {args.frames} records in {ph.seconds:.3f} s "
+        f"({args.frames / ph.seconds:.0f} records/s), flash launches "
+        f"{emb_launches}; first {n_check} against the plain route: max abs "
+        f"err {emb_err:.3g} (tol rtol 2e-3 atol 2e-3; embeddings up to "
+        f"{float(np.abs(plain).max()):.3g})")
+    assert emb.shape == (args.frames, cfg.embed_dim) and np.isfinite(emb).all()
+    np.testing.assert_allclose(emb[:n_check], plain, rtol=2e-3, atol=2e-3)
+    assert emb_launches == want_launches, (emb_launches, want_launches)
+    launches["flash_attention"] = (lm_out["prefill"]["launches"]
+                                   + lm_out["serve"]["launches"]
+                                   + lm_out["decode_window"]["launches"]
+                                   + emb_launches)
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
-               "propagate": "src/repro/kernels/propagate/kernel.py:84"}
+               "propagate": "src/repro/kernels/propagate/kernel.py:84",
+               "flash_attention":
+                   "src/repro/kernels/flash_attention/kernel.py:72"}
+    a = flash[0]
+    results.append({
+        "name": "flash_attention", "max_abs_err": max(
+            r["max_abs_err"] for r in flash),
+        **{k: a[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")},
+        "checks": flash, "prefill_full": flash_full,
+        "launches_by_path": {"lm_prefill": lm_out["prefill"]["launches"],
+                             "lm_serve": lm_out["serve"]["launches"],
+                             "lm_decode_window":
+                                 lm_out["decode_window"]["launches"],
+                             "embedder": emb_launches},
+        "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
+        "lm_decode_window": lm_out["decode_window"]})
     kernels = []
     for res in results:
         name = res["name"]

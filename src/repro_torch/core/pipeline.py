@@ -118,10 +118,13 @@ def build_tasti(workload, cfg: Optional[TastiConfig] = None,
                 use_fpf_mining: bool = True,
                 use_fpf_clustering: bool = True,
                 embed_params: Optional[Dict[str, torch.Tensor]] = None,
-                device: DeviceLike = None) -> TastiSystem:
+                device: DeviceLike = None,
+                embedder: Optional[EmbedderConfig] = None) -> TastiSystem:
     """variant: "PT" (pre-trained only) with ``embed_params``, an
     :class:`~repro_torch.core.embedder.Embedder` state dict (see
-    :func:`~repro_torch.core.embedder.params_from_jax`)."""
+    :func:`~repro_torch.core.embedder.params_from_jax`).  ``embedder``
+    picks the embedder, e.g. ``EmbedderConfig(backbone="tasti-embedder")``;
+    by default the MLP at the workload's feature width."""
     if variant == "T":
         raise NotImplementedError(
             "variant='T' trains the embedder with the triplet loss; it waits "
@@ -135,7 +138,11 @@ def build_tasti(workload, cfg: Optional[TastiConfig] = None,
     cfg = cfg or TastiConfig()
     cost = IndexCost()
     feats = workload.features
-    ecfg = EmbedderConfig(feature_dim=feats.shape[1], embed_dim=cfg.embed_dim)
+    ecfg = embedder or EmbedderConfig(feature_dim=feats.shape[1],
+                                      embed_dim=cfg.embed_dim)
+    if ecfg.feature_dim != feats.shape[1] or ecfg.embed_dim != cfg.embed_dim:
+        raise ValueError(f"embedder {ecfg} does not map the workload's "
+                         f"{feats.shape[1]} features to {cfg.embed_dim}")
     model = Embedder(ecfg)
     model.load_state_dict(embed_params)
     model.to(dev)

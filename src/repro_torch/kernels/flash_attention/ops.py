@@ -1,0 +1,78 @@
+"""Wrapper of the ``flash_attention`` CUDA kernel: CPU tensors take the
+plain version, CUDA tensors launch the kernel (or raise).
+
+The public layout is the JAX wrapper's, q (B,S,H,hd) and k/v (B,Skv,Hk,hd);
+the kernel reads it in place (no transpose), works at the logical head dim
+(no padding to 128, no scale correction) and needs no sequence padding.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+#: the kernel's input types (the TPU kernel's: float32 and bfloat16), as
+#: the dtype codes of ``csrc/common.cuh``
+_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
+#: largest head dim the kernel keeps in its tiles
+MAX_HEAD_DIM = 128
+#: query rows per block (the kernel's BQ); grid.y counts q tiles
+BLOCK_Q = 64
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes float32/bfloat16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    b, s, h, hd = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head dim <= "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    if s == 0 or skv == 0 or b * h >= 2 ** 31 or \
+            (s + BLOCK_Q - 1) // BLOCK_Q > 65535:
+        raise ValueError(f"flash_attention kernel cannot take q "
+                         f"{tuple(q.shape)} against k {tuple(k.shape)}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    status = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+                b, s, skv, h, hk, hd, int(causal), int(window),
+                _DTYPES[q.dtype], _build.stream_of(q))
+    _build.check(lib, status, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q (B,S,H,hd), k/v (B,Skv,Hk,hd) -> (B,S,H,hd) in q's dtype: softmax
+    attention with scale 1/sqrt(hd), query head h on kv head h // (H/Hk),
+    keys masked to ``qpos >= kpos`` (causal) and ``qpos - kpos < window``
+    (window > 0), positions from 0 on both sides; float32 softmax and
+    accumulation."""
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or \
+            q.shape[2] % k.shape[2]:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, window)
+    raise ValueError(f"no flash_attention for device {q.device}")
+
+
+#: kernel launches since the count was last reset
+flash_attention.launches = 0

@@ -175,6 +175,15 @@ def test_embedder_seeded_init_and_transformer_waits():
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     assert float(a.layers[0].weight.detach().std()) == pytest.approx(1 / 8, rel=0.1)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        pt_embedder.Embedder(pt_embedder.EmbedderConfig(
-            backbone="tasti-embedder"))
+    # the transformer backbone: seeded, the same draw twice,
+    # proj_in at 1/sqrt(64 features / 8 tokens); an unknown one raises
+    tcfg = pt_embedder.EmbedderConfig(backbone="tasti-embedder")
+    ta, tb = (pt_embedder.Embedder(tcfg, generator=torch.Generator()
+                                   .manual_seed(1)) for _ in range(2))
+    for (ka, va), (kb, vb) in zip(ta.state_dict().items(),
+                                  tb.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)
+    proj_in = ta.state_dict()["params.proj_in"]
+    assert float(proj_in.std()) == pytest.approx(8 ** -0.5, rel=0.1)
+    with pytest.raises(KeyError, match="unknown arch"):
+        pt_embedder.Embedder(pt_embedder.EmbedderConfig(backbone="no-such"))

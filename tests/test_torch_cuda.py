@@ -9,6 +9,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.distance_topk.ops import PAD_DIST, distance_topk  # noqa: E402
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.fpf_update.ops import fpf_update  # noqa: E402
 from repro_torch.kernels.fpf_update.ref import fpf_update_ref  # noqa: E402
 from repro_torch.kernels.propagate.ops import propagate  # noqa: E402
@@ -87,3 +89,43 @@ def test_propagate_kernel_matches_plain(cuda, mode, c):
     want = propagate(s.cpu(), ids.cpu(), d2.cpu(), mode,
                      clip01=(mode == "numeric"), **kw)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,s,skv,h,hk,hd,causal,window,dtype", [
+    (1, 1024, 1024, 32, 8, 120, True, 256, torch.bfloat16),  # danube layer
+    (512, 8, 8, 4, 4, 64, False, 0, torch.float32),          # embedder batch
+    (2, 1000, 1000, 8, 2, 64, True, 0, torch.float32),       # ragged S
+    (2, 96, 96, 8, 2, 80, True, 0, torch.bfloat16),
+    (1, 64, 192, 4, 2, 64, False, 0, torch.float32),         # S != Skv
+    (1, 200, 50, 4, 2, 32, True, 30, torch.float32),         # rows with no key
+    (1, 130, 130, 2, 1, 128, False, 40, torch.bfloat16),     # window, no causal
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, skv, h, hk, hd,
+                                              causal, window, dtype):
+    """float32 at the JAX package's kernel-test tolerance, 2e-3
+    (tests/test_kernels.py); bf16 at a few bf16 ulps (rtol 1.6e-2) with
+    atol 2e-3: both routes compute in float32 and round once."""
+    g = torch.Generator(device=cuda).manual_seed(s + hd)
+    q = torch.randn(b, s, h, hd, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, skv, hk, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, skv, hk, hd, device=cuda, generator=g).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = ({"rtol": 2e-3, "atol": 2e-3} if dtype == torch.float32
+           else {"rtol": 1.6e-2, "atol": 2e-3})
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(1, 8, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q[..., :64], q[..., :64].half(), q[..., :64])
+    half = q[..., :64].half()
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        flash_attention(half, half, half)

@@ -1,0 +1,389 @@
+"""The port's LM slice against the JAX package on the CPU: flash attention's
+plain version (the CPU path of ``ops.flash_attention``) against the JAX
+reference and the Pallas kernel in interpret mode; the configs, parameter
+layout and initialisation, RoPE and RMSNorm; ``lm_logits``, ``decode_step``
+and replay ``prefill`` with JAX weights carried across by
+``params_from_jax``; the transformer embedder; ``serve_lm``; and the paths
+that are not ported yet, which raise.
+
+Inputs come from seeded numpy.  Tolerances: attention 2e-3 float32 and
+3e-2 bfloat16, as the JAX package's kernel test (tests/test_kernels.py);
+whole-model float32 outputs 1e-4 (the same arithmetic, sums in another
+order, through a few layers); decode replay against the parallel forward
+2e-2, as tests/test_model_consistency.py holds the reference."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import _REGISTRY as JAX_REGISTRY  # noqa: E402
+from repro.configs import SHAPES as JAX_SHAPES  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.core import embedder as jax_embedder  # noqa: E402
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref  # noqa: E402
+from repro.models import common as jax_common  # noqa: E402
+from repro.models import lm as jax_lm  # noqa: E402
+from repro.models import rope as jax_rope  # noqa: E402
+from repro_torch.configs import SHAPES, get_config  # noqa: E402
+from repro_torch.core import embedder as pt_embedder  # noqa: E402
+from repro_torch.core.pipeline import TastiConfig, build_tasti  # noqa: E402
+from repro_torch.core.schema import make_workload  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.launch import serve_lm  # noqa: E402
+from repro_torch.models import attention, common, lm, rope  # noqa: E402
+from repro_torch.train.steps import make_prefill_step, make_serve_step  # noqa: E402
+
+pytestmark = pytest.mark.tier1
+
+_JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a CPU tensor of ``dtype``."""
+    a = a.astype(np.float32)
+    return (jnp.asarray(a).astype(_JAX_DT[dtype]),
+            torch.from_numpy(a).to(_TORCH_DT[dtype]))
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py's four shapes, h2o-danube's head dim 120 with a
+# window that bites, and the transformer embedder's bidirectional S = 8
+FLASH_SHAPES = [
+    (2, 128, 128, 8, 4, 64, True, 0),
+    (1, 128, 128, 4, 4, 128, True, 64),
+    (2, 96, 96, 8, 2, 80, True, 0),
+    (1, 64, 192, 4, 2, 64, False, 0),
+    (1, 128, 128, 8, 2, 120, True, 64),
+    (3, 8, 8, 4, 4, 64, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,skv,h,hk,hd,causal,window", FLASH_SHAPES)
+def test_flash_attention_matches_jax(b, s, skv, h, hk, hd, causal, window,
+                                     dtype):
+    rng = np.random.default_rng(s + h + hd)
+    qj, qt = _pair(rng.normal(size=(b, s, h, hd)), dtype)
+    kj, kt = _pair(rng.normal(size=(b, skv, hk, hd)), dtype)
+    vj, vt = _pair(rng.normal(size=(b, skv, hk, hd)), dtype)
+    got = flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == _TORCH_DT[dtype] and got.shape == qt.shape
+    want_ref = jax_flash_ref(qj, kj, vj, causal=causal, window=window)
+    want_pallas = jax_flash(qj, kj, vj, causal=causal, window=window,
+                            impl="pallas", interpret=True, block_q=64,
+                            block_k=64)
+    tol = 2e-3 if dtype == "float32" else 3e-2
+    for want in (want_ref, want_pallas):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+def test_flash_attention_rows_with_no_key_average_every_value():
+    """Rows 79.. of q (200) see no key of k (50) within the window 30: the
+    reference's finite NEG_INF gives them the plain mean of v, not NaN."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=sh).astype(np.float32) for sh in
+               [(1, 200, 4, 32), (1, 50, 2, 32), (1, 50, 2, 32)])
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True,
+                          window=30).numpy()
+    want = np.asarray(jax_flash_ref(*map(jnp.asarray, (q, k, v)),
+                                    causal=True, window=30))
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    mean_v = np.repeat(v.mean(1), 2, axis=1)           # kv head h // 2
+    np.testing.assert_allclose(got[0, 100], mean_v[0], rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_rejects_bad_shapes():
+    q = torch.zeros(1, 8, 6, 16)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention(q, torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 4, 16))
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention(q, torch.zeros(1, 8, 3, 8), torch.zeros(1, 8, 3, 8))
+
+
+# ---------------------------------------------------------------------------
+# configs, parameters, layers
+# ---------------------------------------------------------------------------
+
+def test_configs_match_jax():
+    assert sorted(JAX_REGISTRY) == sorted(
+        get_config(n).name for n in JAX_REGISTRY)
+    for name, want in JAX_REGISTRY.items():
+        got = get_config(name)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        assert dataclasses.asdict(got.smoke()) == \
+            dataclasses.asdict(want.smoke()), name
+        assert got.param_count() == want.param_count(), name
+    assert [dataclasses.asdict(s) for s in SHAPES] == \
+        [dataclasses.asdict(s) for s in JAX_SHAPES]
+
+
+def _flat_specs(tree, path=""):
+    """[(path, shape, dtype name)] of a spec tree of either package."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in
+                _flat_specs(tree[k], f"{path}/{k}")]
+    if isinstance(tree, tuple):
+        return [x for i, v in enumerate(tree) for x in
+                _flat_specs(v, f"{path}/{i}")]
+    dt = tree.dtype
+    name = str(dt)[6:] if isinstance(dt, torch.dtype) else jnp.dtype(dt).name
+    return [(path, tuple(tree.shape), name)]
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "llama3.2-1b",
+                                  "qwen3-1.7b", "tasti-embedder"])
+def test_parameter_layout_matches_jax(arch):
+    """Full-width specs (no allocation): the same tree, shapes and dtypes."""
+    assert _flat_specs(lm.model_specs(get_config(arch))) == \
+        _flat_specs(jax_lm.model_specs(jax_config(arch)))
+
+
+def test_init_draws_like_jax():
+    """normal / sqrt(fan_in) with fan_in = shape[-2] (the stacked axis
+    excluded), ones for norm scales; the same seed gives the same draw."""
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b").smoke(),
+                              d_model=256, d_ff=512)
+    p = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    again = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    blk = p["blocks"][0]
+    assert blk["attn"]["wq"].shape == (cfg.n_repeats, 256, 4 * 32)
+    for w, fan_in in [(blk["attn"]["wq"], 256), (blk["mlp"]["wo"], 512),
+                      (p["embed"], cfg.padded_vocab), (p["unembed"], 256)]:
+        assert abs(float(w.std()) * np.sqrt(fan_in) - 1) < 0.05
+    assert torch.equal(blk["norm1"]["scale"], torch.ones(cfg.n_repeats, 256))
+    assert torch.equal(p["embed"], again["embed"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_and_rmsnorm_match_jax(dtype):
+    """apply_rope casts cos/sin to x's dtype before multiplying, so bf16
+    rounds as in the reference: bit-equal here."""
+    rng = np.random.default_rng(1)
+    xj, xt = _pair(rng.normal(size=(2, 16, 4, 120)), dtype)
+    pos = np.arange(16)[None]
+    aj = jax_rope.rope_angles(jnp.asarray(pos), 120, 10000.0)
+    at = rope.rope_angles(torch.from_numpy(pos), 120, 10000.0)
+    np.testing.assert_allclose(at.numpy(), np.asarray(aj), rtol=1e-6)
+    got = _f32(rope.apply_rope(xt, at))
+    want = _f32(jax_rope.apply_rope(xj, aj))
+    tol = 1e-5 if dtype == "float32" else 8e-3
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    sj, st = _pair(rng.uniform(0.5, 1.5, size=(120,)), dtype)
+    got = _f32(common.rmsnorm({"scale": st}, xt, 1e-6))
+    want = _f32(jax_common.rmsnorm({"scale": sj}, xj, 1e-6))
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_params_from_jax_keeps_bfloat16_bits():
+    cfg = jax_config("h2o-danube-3-4b").smoke()
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16", dtype="bfloat16")
+    pj = jax_lm.init_model(cfg, jax.random.PRNGKey(3))
+    pt = lm.params_from_jax(jax.tree.map(np.asarray, pj))
+    wq_j = np.asarray(pj["blocks"][0]["attn"]["wq"])
+    wq_t = pt["blocks"][0]["attn"]["wq"]
+    assert wq_t.dtype == torch.bfloat16 and wq_t.shape == wq_j.shape
+    np.testing.assert_array_equal(wq_t.view(torch.int16).numpy(),
+                                  wq_j.view(np.int16))
+
+
+# ---------------------------------------------------------------------------
+# the model: logits, decode, replay prefill
+# ---------------------------------------------------------------------------
+
+def _model(arch, seed=0):
+    cfg_j = jax_config(arch).smoke()
+    pj = jax_lm.init_model(cfg_j, jax.random.PRNGKey(seed))
+    return (cfg_j, pj, get_config(arch).smoke(),
+            lm.params_from_jax(jax.tree.map(np.asarray, pj)))
+
+
+@pytest.mark.parametrize("arch,jax_impl", [
+    ("h2o-danube-3-4b", "xla"), ("h2o-danube-3-4b", "pallas_interpret"),
+    ("llama3.2-1b", "xla"), ("qwen3-1.7b", "xla")])
+def test_lm_logits_match_jax(arch, jax_impl):
+    """h2o-danube at S = 128 so that its smoke window of 64 bites; llama
+    (tied embeddings) and qwen3 (qk-norm) for the other branches."""
+    cfg_j, pj, cfg, pt = _model(arch)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+    want = np.asarray(jax_lm.lm_logits(pj, {"tokens": jnp.asarray(toks)},
+                                       cfg_j, attn_impl=jax_impl))
+    step = make_prefill_step(cfg)
+    got = step(pt, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 128, cfg.padded_vocab)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    plain = make_prefill_step(cfg, attn_impl="plain")(
+        pt, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_array_equal(plain.numpy(), got.numpy())
+
+
+def test_decode_and_replay_prefill_match_jax():
+    cfg_j, pj, cfg, pt = _model("h2o-danube-3-4b", seed=1)
+    b, s, cache_len = 2, 12, 16
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s))
+    cj = jax_lm.init_cache(cfg_j, b, cache_len)
+    ct = lm.init_cache(cfg, b, cache_len, device="cpu")
+    step = make_serve_step(cfg)
+    for t in range(s):
+        lj, cj = jax_lm.decode_step(pj, cj, jnp.asarray(toks[:, t:t + 1]),
+                                    jnp.int32(t), cfg_j)
+        lt, ct = step(pt, ct, torch.from_numpy(toks[:, t:t + 1]), t)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
+                                   atol=1e-4)
+    np.testing.assert_allclose(ct[0]["k"].numpy(), np.asarray(cj[0]["k"]),
+                               rtol=1e-4, atol=1e-4)
+    want, _ = jax_lm.prefill(pj, {"tokens": jnp.asarray(toks)}, cfg_j,
+                             cache_len)
+    with torch.no_grad():
+        got, caches = lm.prefill(pt, {"tokens": torch.from_numpy(toks)}, cfg,
+                                 cache_len)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    # the replay is the serving path of the parallel forward
+    par = make_prefill_step(cfg)(pt, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), par.numpy(), rtol=2e-2,
+                               atol=2e-2)
+    assert caches[0]["k"].shape == (cfg.n_repeats, b, cache_len,
+                                    cfg.n_kv_heads, cfg.resolved_head_dim)
+
+
+def test_decode_ring_wraps_like_jax():
+    """A cache shorter than the sequence wraps (slot pos % S) and the window
+    of 64 never exceeds it here: the ring write matches the reference's
+    one-hot where."""
+    cfg_j, pj, cfg, pt = _model("llama3.2-1b", seed=2)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (1, 10))
+    cj = jax_lm.init_cache(cfg_j, 1, 4)
+    ct = lm.init_cache(cfg, 1, 4, device="cpu")
+    for t in range(10):
+        lj, cj = jax_lm.decode_step(pj, cj, jnp.asarray(toks[:, t:t + 1]),
+                                    jnp.int32(t), cfg_j)
+        with torch.no_grad():
+            lt, ct = lm.decode_step(pt, ct, torch.from_numpy(toks[:, t:t + 1]),
+                                    t, cfg)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_serve_lm_cli_on_cpu(capsys):
+    serve_lm.main(["--arch", "h2o-danube-3-4b", "--preset", "ci", "--batch",
+                   "2", "--prompt-len", "8", "--decode-steps", "4",
+                   "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("[serve] arch=h2o-danube-3-4b-smoke batch=2 "
+                             "prefill=8 tok")
+    assert out[1].startswith("[serve] sample generation ids: [")
+    assert len(eval(out[1].split(": ", 1)[1])) == 4
+
+
+# ---------------------------------------------------------------------------
+# the transformer embedder
+# ---------------------------------------------------------------------------
+
+def test_transformer_embedder_matches_jax():
+    jcfg = jax_embedder.EmbedderConfig(feature_dim=64, embed_dim=128,
+                                       backbone="tasti-embedder")
+    pj = jax_embedder.init_embedder(jcfg, jax.random.PRNGKey(0))
+    x = np.random.default_rng(4).normal(size=(50, 64)).astype(np.float32)
+    want = np.asarray(jax_embedder.embed(pj, jnp.asarray(x), jcfg))
+    cfg = pt_embedder.EmbedderConfig(feature_dim=64, embed_dim=128,
+                                     backbone="tasti-embedder")
+    model = pt_embedder.Embedder(cfg)
+    model.load_state_dict(pt_embedder.params_from_jax(
+        jax.tree.map(np.asarray, pj)))
+    got = pt_embedder.embed_all(model, x, batch=16)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        plain = model(torch.from_numpy(x), attn_impl="plain").numpy()
+    np.testing.assert_allclose(plain, got, rtol=1e-5, atol=1e-5)
+
+
+def test_build_tasti_takes_the_transformer_embedder():
+    """PT build with the transformer backbone embeds as the JAX embedder
+    does with the same weights."""
+    jcfg = jax_embedder.EmbedderConfig(feature_dim=64, embed_dim=128,
+                                       backbone="tasti-embedder")
+    pj = jax_embedder.init_embedder(jcfg, jax.random.PRNGKey(1))
+    wl = make_workload("night-street", n_frames=300)
+    cfg = pt_embedder.EmbedderConfig(feature_dim=64, embed_dim=128,
+                                     backbone="tasti-embedder")
+    system = build_tasti(
+        wl, TastiConfig(n_reps=30, k=4), variant="PT", device="cpu",
+        embed_params=pt_embedder.params_from_jax(jax.tree.map(np.asarray, pj)),
+        embedder=cfg)
+    want = jax_embedder.embed_all(pj, wl.features, jcfg)
+    np.testing.assert_allclose(system.index.embeddings, want, rtol=1e-4,
+                               atol=1e-4)
+    assert system.index.n_reps == 30 and system.ecfg == cfg
+    with pytest.raises(ValueError, match="does not map"):
+        build_tasti(wl, TastiConfig(n_reps=30, k=4, embed_dim=32),
+                    variant="PT", device="cpu", embedder=cfg,
+                    embed_params=system.embed_params)
+
+
+# ---------------------------------------------------------------------------
+# not ported yet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,what", [
+    ("jamba-1.5-large-398b", "mixer 'mamba'"), ("xlstm-350m", "mixer"),
+    ("olmoe-1b-7b", "mlp 'moe'"), ("seamless-m4t-large-v2", "encoder"),
+    ("qwen2-vl-7b", "vision")])
+def test_unported_architectures_raise(arch, what):
+    with pytest.raises(NotImplementedError, match=what):
+        lm.model_specs(get_config(arch).smoke())
+
+
+@pytest.mark.parametrize("field,value,roadmap", [
+    ("shard_strategy", "seq_dp", "A4"), ("decode_cache_update", "dus", "A3"),
+    ("decode_ring", 4, "A3")])
+def test_unported_attention_options_raise(field, value, roadmap):
+    cfg = dataclasses.replace(get_config("llama3.2-1b").smoke(),
+                              **{field: value})
+    p = common.init_params(attention.attention_specs(cfg), device="cpu")
+    x = torch.zeros(1, 4, cfg.d_model)
+    with pytest.raises(NotImplementedError, match=roadmap):
+        attention.attention_fwd(p, x, cfg)
+    kv = torch.zeros(1, 4, cfg.n_kv_heads, cfg.resolved_head_dim)
+    with pytest.raises(NotImplementedError, match=roadmap):
+        attention.attention_decode(p, x[:, :1], kv, kv.clone(), 0, cfg)
+    with pytest.raises(ValueError, match="attn impl"):
+        attention.attention_fwd(p, x, get_config("llama3.2-1b").smoke(),
+                                impl="xla")
+
+
+def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_lm.main(["--arch", "h2o-danube-3-4b", "--preset", "ci"])
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg: lm.init_model(cfg, torch.Generator().manual_seed(0)),
+    lambda cfg: common.init_params(attention.attention_specs(cfg)),
+    lambda cfg: lm.init_cache(cfg, 1, 4)],
+    ids=["init_model", "init_params", "init_cache"])
+def test_model_state_defaults_to_cuda_and_raises_without_it(monkeypatch,
+                                                            make):
+    """Parameters and caches land on CUDA unless the caller asks for
+    another device; without CUDA, asking for nothing raises."""
+    cfg = get_config("h2o-danube-3-4b").smoke()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(cfg)

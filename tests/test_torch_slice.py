@@ -180,6 +180,25 @@ s = build_tasti(wl, TastiConfig(n_reps=30, k=4), variant="PT",
                 embed_params=params, device="cpu")
 res = s.execute_session([QuerySpec(kind="aggregation", score="score_count")])
 assert res.results[0].estimate is not None
+# the LM path: prefill forward through ops.flash_attention, replay decode,
+# serve_lm, and the transformer embedder inside build_tasti
+from repro_torch.configs import get_config
+from repro_torch.launch import serve_lm
+from repro_torch.models import lm
+from repro_torch.train.steps import make_prefill_step
+cfg = get_config("h2o-danube-3-4b").smoke()
+p = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+toks = torch.randint(0, cfg.vocab_size, (1, 80))
+assert make_prefill_step(cfg)(p, {"tokens": toks}).shape == (1, 80, 512)
+out = serve_lm.serve(p, cfg, toks[:, :6], decode_steps=3)
+assert out["generated"].shape == (1, 3)
+serve_lm.main(["--arch", "llama3.2-1b", "--batch", "2", "--prompt-len", "4",
+               "--decode-steps", "2", "--device", "cpu"])
+tcfg = EmbedderConfig(backbone="tasti-embedder")
+s = build_tasti(wl, TastiConfig(n_reps=30, k=4), variant="PT",
+                embed_params=Embedder(tcfg).state_dict(), device="cpu",
+                embedder=tcfg)
+assert s.index.embeddings.shape == (300, 128)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
