@@ -8,19 +8,23 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes and times kernel, plain version and, where one PyTorch
    call computes the same function, that call (``library_ms``).
+   flash_attention is held on each of its three paths (tc, short, simt),
+   and each check asserts which path its input takes.
 3. tasti: builds a TASTI index (``build_tasti``, variant PT, seeded random
    embedder weights) over the synthetic night-street video at 1M frames and
    serves a three-query session twice through a cracking ``QueryEngine``
    with resident scoring.
 4. lm_prefill: h2o-danube-3-4b at its published widths (seeded random bf16
    weights) through ``make_prefill_step`` on one 32,768-token prompt, every
-   attention layer through the ``flash_attention`` kernel; the same model on
-   2,048 tokens against the plain attention route, in bf16 and with the
-   weights cast to float32.
-5. lm_serve: the ``serve_lm`` path (replay prefill, greedy decode) at the
-   same width, batch 4, prompt 32, 16 decode steps.
+   attention layer through the ``flash_attention`` kernel's tc path; the
+   same model on 8,192 tokens against the plain attention route, in bf16
+   and with the weights cast to float32.
+5. lm_serve and lm_decode_window: the ``serve_lm`` path (replay prefill,
+   greedy decode) at the same width, batch 4, prompt 32, 16 decode steps;
+   16 decode steps with the 4,096-key window full.
 6. embedder: the transformer embedder (``tasti-embedder``, seeded random
-   weights) over the night-street records, attention through the kernel.
+   weights) over the night-street records, attention through the kernel's
+   short path.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -76,16 +80,42 @@ def bound_ms(n_bytes: float, n_flops: float, peak: float = PEAK_F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ptxas_summary(build_dir: pathlib.Path, digest: str) -> str:
-    out = []
-    for logf in sorted(build_dir.glob(f"*-{digest}.log")):
-        text = logf.read_text()
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores",
-                                             text)]
-        out.append(f"{logf.stem.split('-')[0]}: max {max(regs, default=0)} "
-                   f"registers, max {max(spills, default=0)} B spill stores")
-    return "; ".join(out)
+def entry_label(fn: str) -> str:
+    """A short name for a mangled flash_attention entry function: its path,
+    its input type and the head-dim bound of its tiles."""
+    m = re.search(r"flash_(tc|short|fwd)_kernelI(13__nv_bfloat16|f)?(?:Li("
+                  r"\d+))?", fn)
+    if not m:
+        return fn
+    path = {"fwd": "simt"}.get(m.group(1), m.group(1))
+    dtype = {"f": " f32", "13__nv_bfloat16": " bf16", None: " bf16"}[
+        m.group(2)]
+    return path + dtype + (f" hd<={m.group(3)}" if m.group(3) else "")
+
+
+def ptxas_report(build_dir: pathlib.Path, digests: dict) -> dict:
+    """{library: [(entry function, registers, spill store bytes)]} from the
+    compiler's report beside each library."""
+    out = {}
+    for name, digest in sorted(digests.items()):
+        text = (build_dir / f"{name}-{digest}.log").read_text()
+        entries = []
+        for block in text.split("Compiling entry function '")[1:]:
+            fn = block.split("'", 1)[0]
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            entries.append((entry_label(fn),
+                            int(regs.group(1)) if regs else None,
+                            int(spill.group(1)) if spill else None))
+        out[name] = entries
+    return out
+
+
+def ptxas_summary(report: dict) -> str:
+    return "; ".join(
+        f"{name}: max {max((r or 0) for _, r, _ in e)} registers, max "
+        f"{max((sp or 0) for _, _, sp in e)} B spill stores"
+        for name, e in report.items())
 
 
 class Phase:
@@ -159,15 +189,23 @@ def check_distance_topk(dev, rows: int, c: int, d: int, k: int,
     full_ms = time_ms(lambda: distance_topk(xf, r, k), 2)
     fb, _ = bound_ms(4 * (full_rows * d + c * d) + 8 * full_rows * k,
                      2.0 * full_rows * c * d)
-    del xf
+    # the library calls at the full row count, in chunks of 262,144 rows
+    # (one chunk's (rows, C) float32 distances are 7.3 GB)
+    chunks = xf.split(262144)
+    full_lib_ms = time_ms(lambda: [torch.topk(torch.cdist(xc, r), k, dim=1,
+                                              largest=False) for xc in chunks],
+                          2)
+    del xf, chunks
     log(f"distance_topk {rows}x{c}x{d} k={k}: max_abs_err {err:.3g} "
         f"(tol rtol 1e-4 atol 1e-4), kernel {ms:.3f} ms, plain {plain_ms:.3f}"
         f" ms, cdist+topk {lib_ms:.3f} ms, bound {b:.3f} ms ({by}); at "
-        f"{full_rows} rows kernel {full_ms:.3f} ms, bound {fb:.3f} ms")
+        f"{full_rows} rows kernel {full_ms:.3f} ms, cdist+topk "
+        f"{full_lib_ms:.3f} ms, bound {fb:.3f} ms")
     return {"name": "distance_topk", "shape": [rows, c, d, k],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
-            "full_rows": full_rows, "full_ms": full_ms, "full_bound_ms": fb}
+            "full_rows": full_rows, "full_ms": full_ms, "full_bound_ms": fb,
+            "full_library_ms": full_lib_ms}
 
 
 def check_fpf_update(dev, n: int, d: int):
@@ -273,85 +311,150 @@ def attention_bound(b, s, skv, h, hk, hd, dtype, causal, window):
     return (*bound_ms(n_bytes, n_flops, peak), n_flops)
 
 
-# Kernel against plain attention: float32 at the JAX package's kernel-test
-# tolerance (2e-3, tests/test_kernels.py); bf16 held to bf16 rounding, not to
-# the size of the values: both routes compute in float32 and round once, so
-# they differ by an ulp or two (2^-8 relative).  With q, k, v ~ N(0, 1) an
-# output over n keys is ~sqrt(e / n) (0.026 at n = 4,096), so the reference's
-# 3e-2 would pass a kernel that dropped or doubled a 64-key tile.
-ATTN_TOL = {torch.float32: {"rtol": 2e-3, "atol": 2e-3},
-            torch.bfloat16: {"rtol": 1.6e-2, "atol": 2e-3}}
+# Kernel against plain attention: ``ref.allowed_error``, element by element.
+# float32 at 2e-3, bf16 at rtol 1.6e-2, atol 2e-3 (``ref.ATTN_TOL``); the tc
+# path also rounds P to bf16 before P.V, so there each element may move, in
+# addition, by up to twice (``ref.WITNESS_P``) what that rounding alone moves
+# it in the witness ``flash_attention_ref(..., round_p=True)``.  Shape a also
+# holds a planted fault (``check_planted_fault``) that the rule must reject.
 
 
-def check_flash_attention(dev, label: str, b: int, s: int, h: int, hk: int,
-                          hd: int, dtype, causal: bool, window: int,
-                          library: bool = False, iters: int = 5):
-    """The kernel against its plain version on the same inputs, within
-    ``ATTN_TOL``; kernel and plain ms; with ``library``,
-    ``scaled_dot_product_attention`` (GQA, the same boolean band mask) as a
-    yardstick."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    g = torch.Generator(device=dev).manual_seed(s + hd)
-    q = torch.randn(b, s, h, hd, device=dev, generator=g).to(dtype)
-    k = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dtype)
-    v = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dtype)
-    got = flash_attention(q, k, v, causal=causal, window=window)
-    want = flash_attention_ref(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    tol = ATTN_TOL[dtype]
-    err = float((got.float() - want.float()).abs().max())
-    torch.testing.assert_close(got.float(), want.float(), **tol)
-    del got, want
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                         window=window), iters)
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
-                                                   window=window), 2)
-    lib_ms = None
-    if library:
-        import torch.nn.functional as F
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        qpos = torch.arange(s, device=dev)[:, None]
-        kpos = torch.arange(s, device=dev)[None, :]
-        mask = torch.ones(s, s, dtype=torch.bool, device=dev)
+def sdpa_ms(q, k, v, causal: bool, window: int, iters: int) -> float:
+    """``scaled_dot_product_attention`` on the same inputs (heads moved to
+    dim 1, GQA, the same boolean band mask; no mask where nothing is
+    masked): the library yardstick, used nowhere in the port."""
+    import torch.nn.functional as F
+    s, skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = None
+    if causal or window:
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        mask = torch.ones(s, skv, dtype=torch.bool, device=q.device)
         if causal:
             mask &= qpos >= kpos
         if window:
             mask &= qpos - kpos < window
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
-        del qt, kt, vt, mask
-    bnd, by, flops = attention_bound(b, s, s, h, hk, hd, dtype, causal,
+    ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+    del qt, kt, vt, mask
+    return ms
+
+
+def check_planted_fault(q, k, v, causal: bool, window: int, want, allowed):
+    """The check must reject a kernel that drops a key tile: the kernel run
+    with v zeroed over the 128 keys at the window's lower edge of the last
+    128 query rows, held to the clean inputs' ``allowed``.  Returns the
+    elements outside, in all and in those last rows, where the tile is the
+    window's edge and only partly inside it."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    s = q.shape[1]
+    e0 = max(0, s - 128 - window + 1) // 128 * 128
+    vz = v.clone()
+    vz[:, e0:e0 + 128] = 0
+    got = flash_attention(q, k, vz, causal=causal, window=window).float()
+    bad = (got - want).abs() > allowed
+    out = {"keys": [e0, e0 + 128], "outside": int(bad.sum()),
+           "outside_last_rows": int(bad[:, -128:].sum()),
+           "elements": bad.numel(), "elements_last_rows": bad[:, -128:].numel()}
+    del vz, got, bad
+    log(f"planted fault (v zeroed at keys {e0}..{e0 + 127}): "
+        f"{out['outside']} of {out['elements']} elements outside, "
+        f"{out['outside_last_rows']} of {out['elements_last_rows']} in the "
+        f"last 128 query rows")
+    assert out["outside"] > 0 and out["outside_last_rows"] > 0, out
+    return out
+
+
+def check_flash_attention(dev, label: str, b: int, s: int, h: int, hk: int,
+                          hd: int, dtype, causal: bool, window: int,
+                          path: str, skv: int = None, timed: bool = True,
+                          iters: int = 5):
+    """The kernel against its plain version on the same inputs
+    (``allowed_error``, with the P-rounding witness on the tc path); it must
+    take ``path``.  With ``timed``, kernel, plain and
+    ``scaled_dot_product_attention`` ms."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_route)
+    from repro_torch.kernels.flash_attention.ref import (ATTN_TOL,
+                                                         WITNESS_P,
+                                                         allowed_error,
+                                                         flash_attention_ref)
+    skv = s if skv is None else skv
+    g = torch.Generator(device=dev).manual_seed(s + hd)
+    q = torch.randn(b, s, h, hd, device=dev, generator=g).to(dtype)
+    k = torch.randn(b, skv, hk, hd, device=dev, generator=g).to(dtype)
+    v = torch.randn(b, skv, hk, hd, device=dev, generator=g).to(dtype)
+    assert flash_route(q, k) == path, (label, flash_route(q, k), path)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want, allowed = allowed_error(q, k, v, causal, window,
+                                  round_p=path == "tc")
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    outside = int((diff > allowed).sum())
+    # the witness's largest distance from the plain version, for the record
+    wit_err = None
+    if path == "tc":
+        base = tol["atol"] + tol["rtol"] * want.abs()
+        wit_err = float((allowed - base).max()) / WITNESS_P
+        del base
+    assert outside == 0, (label, err, outside)
+    planted = (check_planted_fault(q, k, v, causal, window, want, allowed)
+               if label == "a" else None)
+    del got, want, allowed, diff
+    out = {"label": label, "path": path, "shape": [b, s, skv, h, hk, hd],
+           "dtype": str(dtype)[6:], "causal": causal, "window": window,
+           "max_abs_err": err, "tol": tol, "outside_tol": outside,
+           "witness_err": wit_err, "planted": planted}
+    line = (f"flash_attention[{label}] {path} q {(b, s, h, hd)} k "
+            f"{(b, skv, hk, hd)} {str(dtype)[6:]} causal={causal} "
+            f"window={window}: max_abs_err {err:.3g} (tol rtol "
+            f"{tol['rtol']:g} atol {tol['atol']:g}"
+            + ("" if wit_err is None else
+               f" + 2x the P-rounding witness's error, at most {wit_err:.3g}")
+            + f"; {outside} outside)")
+    if not timed:
+        log(line)
+        return out
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                         window=window), iters)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window), 2)
+    lib_ms = sdpa_ms(q, k, v, causal, window, iters)
+    bnd, by, flops = attention_bound(b, s, skv, h, hk, hd, dtype, causal,
                                      window)
-    log(f"flash_attention[{label}] q {(b, s, h, hd)} kv heads {hk} "
-        f"{str(dtype)[6:]} causal={causal} window={window}: max_abs_err "
-        f"{err:.3g} (tol rtol {tol['rtol']:g} atol {tol['atol']:g}), kernel "
-        f"{ms:.3f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, library "
-        f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms, bound "
-        f"{bnd:.4f} ms ({by})")
-    return {"label": label, "shape": [b, s, h, hk, hd], "dtype":
-            str(dtype)[6:], "causal": causal, "window": window,
-            "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
+    log(f"{line}, kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {bnd:.4f} ms "
+        f"({by})")
+    out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bnd,
+               bound_by=by)
+    return out
 
 
 def time_flash_full(dev, cfg, seq: int, iters: int = 2):
-    """One kernel launch at a full-width prefill layer's shape (no plain
-    comparison: its (H, S, S) float32 scores would not fit)."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    """One kernel launch at a full-width prefill layer's shape, beside
+    ``scaled_dot_product_attention`` (no plain comparison: its (H, S, S)
+    float32 scores would not fit)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_route)
     g = torch.Generator(device=dev).manual_seed(7)
     hd, h, hk = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     q = torch.randn(1, seq, h, hd, device=dev, generator=g).bfloat16()
     k = torch.randn(1, seq, hk, hd, device=dev, generator=g).bfloat16()
     v = torch.randn(1, seq, hk, hd, device=dev, generator=g).bfloat16()
+    path = flash_route(q, k)
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
                                          window=cfg.sliding_window), iters)
+    lib_ms = sdpa_ms(q, k, v, True, cfg.sliding_window, iters)
     bnd, by, flops = attention_bound(1, seq, seq, h, hk, hd, torch.bfloat16,
                                      True, cfg.sliding_window)
-    log(f"flash_attention[prefill {seq}] one launch {ms:.3f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bnd:.4f} ms ({by})")
-    return {"seq": seq, "ms": ms, "bound_ms": bnd, "bound_by": by}
+    log(f"flash_attention[prefill {seq}] {path} one launch {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), library {lib_ms:.3f} ms, bound "
+        f"{bnd:.4f} ms ({by})")
+    return {"seq": seq, "path": path, "ms": ms, "library_ms": lib_ms,
+            "plain_ms": None, "bound_ms": bnd, "bound_by": by}
 
 
 # Logits of the bf16 model along two attention routes: one bf16 ulp (2^-8
@@ -452,7 +555,8 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
     """lm_prefill, lm_serve and lm_decode_window at h2o-danube-3-4b's
     published widths."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
     from repro_torch.launch import serve_lm
     from repro_torch.models import lm
     from repro_torch.train.steps import make_prefill_step, make_serve_step
@@ -476,31 +580,36 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
     compare = compare_routes(cfg, params, tokens[:, :compare_len], prefill,
                              prefill_plain)
 
-    flash_attention.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with Phase("lm_prefill", profile) as ph:
         logits = prefill(params, {"tokens": tokens})
     prefill_launches = flash_attention.launches
+    prefill_paths = dict(flash_attention.launches_by_path)
     prefill_s = ph.seconds
     finite = bool(torch.isfinite(logits).all())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"phase lm_prefill: {prefill_len} tokens in {ph.seconds:.3f} s "
         f"({prefill_len / ph.seconds:.1f} tok/s), logits "
         f"{tuple(logits.shape)} finite={finite}, flash launches "
-        f"{prefill_launches}, peak device memory {peak:.2f} GiB")
+        f"{prefill_launches} {prefill_paths}, peak device memory {peak:.2f} "
+        f"GiB")
     assert logits.shape == (1, prefill_len, cfg.padded_vocab), logits.shape
     assert finite
     assert prefill_launches == n_attn, (prefill_launches, n_attn)
+    assert prefill_paths == {"simt": 0, "tc": n_attn, "short": 0}, \
+        prefill_paths
     del logits
 
     # lm_serve: replay prefill + greedy decode, batch 4, prompt 32 (a smoke
     # size: the cache holds 48 of the window's 4,096 keys)
     prompts = torch.randint(1, cfg.vocab_size, (4, 32), device=dev,
                             generator=g)
-    flash_attention.launches = 0
+    reset_launches()
     with Phase("lm_serve", profile) as ph:
         out = serve_lm.serve(params, cfg, prompts, decode_steps=16)
     serve_launches = flash_attention.launches
+    serve_paths = dict(flash_attention.launches_by_path)
     par = prefill(params, {"tokens": prompts})[:, -1]
     smx, smean, stop1 = logits_agreement(out["last_logits"], par,
                                          cfg.vocab_size)
@@ -525,12 +634,13 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
             t.normal_(generator=g)
     step = make_serve_step(cfg)
     tok = prompts[:, -1:]
-    flash_attention.launches = 0
+    reset_launches()
     with Phase("lm_decode_window", profile) as ph:
         for t in range(steps):
             lg, caches = step(params, caches, tok, ctx + t)
             tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1)
     window_launches = flash_attention.launches
+    window_paths = dict(flash_attention.launches_by_path)
     win_tok_s = prompts.shape[0] * steps / ph.seconds
     log(f"phase lm_decode_window: {steps} steps x batch {prompts.shape[0]} "
         f"at cache {ctx} in {ph.seconds:.3f} s ({win_tok_s:.1f} tok/s, "
@@ -539,15 +649,18 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
     assert bool(torch.isfinite(lg).all())
     del caches
     return {"prefill": {"tokens": prefill_len, "seconds": prefill_s,
-                        "launches": prefill_launches, "peak_gib": peak,
+                        "launches": prefill_launches,
+                        "launches_by_path": prefill_paths, "peak_gib": peak,
                         "compare": compare},
-            "serve": {"launches": serve_launches, "decode_tok_s": tok_s,
+            "serve": {"launches": serve_launches,
+                      "launches_by_path": serve_paths, "decode_tok_s": tok_s,
                       "decode_s": out["decode_s"],
                       "replay_prefill_s": out["prefill_s"], **serve_cmp},
             "decode_window": {"cache": ctx, "steps": steps,
                               "batch": prompts.shape[0],
                               "seconds": ph.seconds, "tok_s": win_tok_s,
-                              "launches": window_launches},
+                              "launches": window_launches,
+                              "launches_by_path": window_paths},
             "cfg": cfg}
 
 
@@ -582,9 +695,13 @@ def main(argv=None) -> None:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"({ptxas_summary(_build.build_dir(), _build.sources_hash())})")
+    libs = _build.build_all()
+    ptxas = ptxas_report(_build.build_dir(),
+                         {n: p.stem.split("-")[-1] for n, p in libs.items()})
+    log(f"build: {time.perf_counter() - t0:.2f} s ({ptxas_summary(ptxas)})")
+    for fn, regs, spill in ptxas["flash_attention"]:
+        log(f"  ptxas flash_attention {fn}: {regs} registers, {spill} B "
+            f"spill stores")
 
     from repro_torch.core.embedder import Embedder, EmbedderConfig
     from repro_torch.core.engine import QueryEngine, QuerySpec
@@ -594,7 +711,8 @@ def main(argv=None) -> None:
     from repro_torch.core.session import QuerySession
     from repro_torch.kernels.distance_topk.ops import distance_topk
     from repro_torch.core.embedder import embed_all
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
     from repro_torch.kernels.fpf_update.ops import fpf_update
     from repro_torch.kernels.propagate.ops import propagate
 
@@ -608,21 +726,43 @@ def main(argv=None) -> None:
         check_fpf_update(dev, args.frames, cfg.embed_dim),
         check_propagate(dev, args.frames, cfg.n_reps, cfg.k),
     ]
-    # flash_attention at (a) a danube-3-4b layer (GQA 32/8, hd 120, bf16,
-    # causal, window 4096), and the same in float32 (a32), where a wrong
-    # window edge or key-tile skip cannot hide in rounding; (b) the
-    # transformer embedder's batch (f32, bidirectional, S 8, hd 64), (c) a
-    # ragged S that is no tile multiple
+    # flash_attention, timed: (a) a danube-3-4b layer (GQA 32/8, hd 120,
+    # bf16, causal, window 4096; tc), the same in float32 (a32; simt), where
+    # a wrong window edge or key-tile skip cannot hide in rounding; (b) the
+    # transformer embedder's batch (f32, bidirectional, S 8, hd 64; short);
+    # (c) a ragged S that is no tile multiple (f32; simt)
     flash = [
         check_flash_attention(dev, "a", 1, 8192, 32, 8, 120, torch.bfloat16,
-                              True, 4096, library=True),
+                              True, 4096, "tc"),
         check_flash_attention(dev, "a32", 1, 8192, 32, 8, 120, torch.float32,
-                              True, 4096),
+                              True, 4096, "simt"),
         check_flash_attention(dev, "b", 65536, 8, 4, 4, 64, torch.float32,
-                              False, 0),
+                              False, 0, "short"),
         check_flash_attention(dev, "c", 2, 1000, 8, 2, 64, torch.float32,
-                              True, 0),
+                              True, 0, "simt"),
     ]
+    # correctness only: the tc path at hd 64, 80 and 128, S no multiple of
+    # 128 and Skv != S, GQA ratios 1 and 4, rows with no key, a window
+    # without causal; the short path at S 1, 8 and 32 in both dtypes
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, b, s, skv, h, hk, hd, dtype, causal, window, path in [
+            ("tc-hd64-gqa1", 2, 1000, 1000, 8, 8, 64, bf, True, 0, "tc"),
+            ("tc-hd80-ragged", 2, 333, 333, 8, 2, 80, bf, True, 100, "tc"),
+            ("tc-hd128-skv", 1, 700, 1500, 16, 4, 128, bf, True, 0, "tc"),
+            ("tc-skv<s", 2, 1000, 300, 8, 2, 128, bf, False, 0, "tc"),
+            ("tc-no-key", 1, 1200, 500, 8, 2, 64, bf, True, 256, "tc"),
+            ("tc-window-only", 1, 1000, 1000, 8, 2, 120, bf, False, 200,
+             "tc"),
+            ("short-s1-f32", 4096, 1, 1, 4, 4, 64, f32, False, 0, "short"),
+            ("short-s1-bf16", 4096, 1, 1, 4, 4, 64, bf, False, 0, "short"),
+            ("short-s8-f32", 4096, 8, 8, 4, 4, 64, f32, False, 0, "short"),
+            ("short-s8-bf16", 4096, 8, 8, 4, 4, 64, bf, False, 0, "short"),
+            ("short-s32-f32", 1024, 32, 32, 2, 1, 64, f32, True, 0, "short"),
+            ("short-s32-bf16", 1024, 32, 32, 4, 2, 64, bf, True, 8, "short"),
+    ]:
+        flash.append(check_flash_attention(
+            dev, label, b, s, h, hk, hd, dtype, causal, window, path, skv=skv,
+            timed=False))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"phase kernel_checks: {time.perf_counter() - t0:.2f} s")
@@ -699,10 +839,11 @@ def main(argv=None) -> None:
                           embed_dim=cfg.embed_dim, backbone="tasti-embedder")
     model = Embedder(tcfg, generator=torch.Generator().manual_seed(0)).to(dev)
     batch = 65536
-    flash_attention.launches = 0
+    reset_launches()
     with Phase("embedder", args.profile) as ph:
         emb = embed_all(model, wl.features, batch=batch)
     emb_launches = flash_attention.launches
+    emb_paths = dict(flash_attention.launches_by_path)
     n_check = min(batch, args.frames)
     with torch.no_grad():
         plain = model(torch.as_tensor(wl.features[:n_check], device=dev),
@@ -711,12 +852,15 @@ def main(argv=None) -> None:
     want_launches = -(-args.frames // batch) * model.backbone.n_layers
     log(f"phase embedder: {args.frames} records in {ph.seconds:.3f} s "
         f"({args.frames / ph.seconds:.0f} records/s), flash launches "
-        f"{emb_launches}; first {n_check} against the plain route: max abs "
+        f"{emb_launches} {emb_paths}; first {n_check} against the plain "
+        f"route: max abs "
         f"err {emb_err:.3g} (tol rtol 2e-3 atol 2e-3; embeddings up to "
         f"{float(np.abs(plain).max()):.3g})")
     assert emb.shape == (args.frames, cfg.embed_dim) and np.isfinite(emb).all()
     np.testing.assert_allclose(emb[:n_check], plain, rtol=2e-3, atol=2e-3)
     assert emb_launches == want_launches, (emb_launches, want_launches)
+    assert emb_paths == {"simt": 0, "tc": 0, "short": want_launches}, \
+        emb_paths
     launches["flash_attention"] = (lm_out["prefill"]["launches"]
                                    + lm_out["serve"]["launches"]
                                    + lm_out["decode_window"]["launches"]
@@ -727,18 +871,34 @@ def main(argv=None) -> None:
                "propagate": "src/repro/kernels/propagate/kernel.py:84",
                "flash_attention":
                    "src/repro/kernels/flash_attention/kernel.py:72"}
-    a = flash[0]
+    # per kernel path: its timed shape (tc: a, simt: a32, short: b) and its
+    # launches over the main path's phases
+    by_label = {r["label"]: r for r in flash}
+    phase_paths = [lm_out["prefill"]["launches_by_path"],
+                   lm_out["serve"]["launches_by_path"],
+                   lm_out["decode_window"]["launches_by_path"], emb_paths]
+    paths = {}
+    for path, label in (("tc", "a"), ("short", "b"), ("simt", "a32")):
+        r = by_label[label]
+        paths[path] = {"shape_label": label, "launches": sum(
+            pp[path] for pp in phase_paths), **{k: r[k] for k in (
+                "shape", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}}
+    paths["tc"]["prefill_full"] = flash_full
+    paths["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
+                          for fn, regs, spill in ptxas["flash_attention"]}
+    a = by_label["a"]
     results.append({
         "name": "flash_attention", "max_abs_err": max(
             r["max_abs_err"] for r in flash),
         **{k: a[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")},
-        "checks": flash, "prefill_full": flash_full,
-        "launches_by_path": {"lm_prefill": lm_out["prefill"]["launches"],
-                             "lm_serve": lm_out["serve"]["launches"],
-                             "lm_decode_window":
-                                 lm_out["decode_window"]["launches"],
-                             "embedder": emb_launches},
+        "paths": paths, "checks": flash,
+        "launches_by_phase": {"lm_prefill": lm_out["prefill"]["launches"],
+                              "lm_serve": lm_out["serve"]["launches"],
+                              "lm_decode_window":
+                                  lm_out["decode_window"]["launches"],
+                              "embedder": emb_launches},
         "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
         "lm_decode_window": lm_out["decode_window"]})
     kernels = []

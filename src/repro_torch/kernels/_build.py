@@ -4,9 +4,11 @@ Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface, and loaded with
 :mod:`ctypes`.  No source includes PyTorch's headers, which would cost
 minutes per build.  The libraries land in ``build/kernels/`` at the
-repository root, named by a hash of all sources and flags: an unchanged
-tree is never rebuilt, and a changed one never loads a stale library.  All
-sources compile in parallel, one ``nvcc`` each.
+repository root, each named by a hash of its own source, the ``csrc``
+headers it includes and the flags: an unchanged kernel is never rebuilt, a
+changed one never loads a stale library, and editing one source rebuilds
+that library alone.  What needs building compiles in parallel, one
+``nvcc`` per source.
 
 Nothing here runs at import time; the first kernel launch builds.
 """
@@ -16,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -44,27 +47,42 @@ def _nvcc() -> str:
                        "build the CUDA kernels")
 
 
-def sources_hash() -> str:
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _includes(path: pathlib.Path, seen=None) -> list:
+    """The ``csrc`` headers that ``path`` includes, directly or not."""
+    seen = set() if seen is None else seen
+    for name in _INCLUDE.findall(path.read_text()):
+        dep = CSRC / name
+        if dep.exists() and dep not in seen:
+            seen.add(dep)
+            _includes(dep, seen)
+    return sorted(seen)
+
+
+def source_hash(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, the headers it includes and the flags."""
+    src = CSRC / f"{name}.cu"
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in [src, *_includes(src)]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str, digest: str) -> pathlib.Path:
-    return build_dir() / f"{name}-{digest}.so"
+def _lib_path(name: str) -> pathlib.Path:
+    return build_dir() / f"{name}-{source_hash(name)}.so"
 
 
 def build_all() -> Dict[str, pathlib.Path]:
-    """Compile every kernel source that has no library for the current
+    """Compile every kernel source that has no library for its current
     hash, all in parallel; returns ``{kernel name: library path}``.  The
-    compiler's register/spill report goes to ``<name>-<hash>.log``."""
-    digest = sources_hash()
+    compiler's register/spill report goes beside each library, as
+    ``<name>-<hash>.log``."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    paths = {p.stem: _lib_path(p.stem, digest)
-             for p in sorted(CSRC.glob("*.cu"))}
+    paths = {p.stem: _lib_path(p.stem) for p in sorted(CSRC.glob("*.cu"))}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths

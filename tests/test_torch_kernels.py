@@ -200,3 +200,36 @@ def test_tie_break_prescale_matches_jax():
     np.testing.assert_allclose(
         float(one), float(jax_prescale(jnp.ones(1), jnp.asarray(d2))),
         rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' build: one library per source, keyed by its own inputs
+# ---------------------------------------------------------------------------
+
+def test_each_kernel_library_hashes_its_own_source_and_headers(tmp_path,
+                                                               monkeypatch):
+    """Editing one source changes that library's hash alone; editing a
+    header changes the hash of every source that includes it."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = sorted(p.stem for p in csrc.glob("*.cu"))
+    assert names == ["distance_topk", "flash_attention", "fpf_update",
+                     "propagate"]
+    assert [p.name for p in _build._includes(csrc / "flash_attention.cu")] \
+        == ["common.cuh", "hopper.cuh"]
+    before = {n: _build.source_hash(n) for n in names}
+    assert len(set(before.values())) == len(names)
+    with open(csrc / "propagate.cu", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.source_hash(n) for n in names}
+    assert [n for n in names if after[n] != before[n]] == ["propagate"]
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    again = {n: _build.source_hash(n) for n in names}
+    assert [n for n in names if again[n] != after[n]] == ["flash_attention"]
+    assert _build._lib_path("flash_attention").name == \
+        f"flash_attention-{again['flash_attention']}.so"

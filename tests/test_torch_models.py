@@ -116,6 +116,108 @@ def test_flash_attention_rejects_bad_shapes():
         flash_attention(q, torch.zeros(1, 8, 3, 8), torch.zeros(1, 8, 3, 8))
 
 
+# The kernel's path comes from shape and dtype alone (it runs here too):
+# short up to S, Skv = 32 while one batch element's rows fit its block; tc
+# for bf16 with hd % 8 == 0 and hd <= 128; simt for the rest, float32
+# included.
+@pytest.mark.parametrize("dtype,b,s,skv,h,hk,hd,path", [
+    ("bfloat16", 1, 8192, 8192, 32, 8, 120, "tc"),     # danube prefill layer
+    ("bfloat16", 2, 33, 33, 8, 2, 64, "tc"),           # just past short
+    ("bfloat16", 2, 32, 33, 8, 2, 64, "tc"),
+    ("bfloat16", 2, 32, 32, 8, 2, 64, "short"),        # at the limit
+    ("bfloat16", 2, 31, 1, 8, 2, 64, "short"),
+    ("bfloat16", 1, 512, 512, 4, 4, 60, "simt"),       # hd % 8 != 0
+    ("bfloat16", 1, 512, 512, 4, 4, 136, "simt"),      # hd > 128
+    ("bfloat16", 1, 32, 32, 32, 8, 128, "tc"),         # short rows too big
+    ("float32", 65536, 8, 8, 4, 4, 64, "short"),       # the embedder
+    ("float32", 1, 32, 32, 4, 2, 64, "simt"),          # 69,632 B > 64 KB
+    ("float32", 1, 32, 32, 2, 1, 64, "short"),
+    ("float32", 1, 8, 8, 4, 4, 62, "simt"),            # rows not 16-byte
+    ("float32", 1, 8192, 8192, 32, 8, 120, "simt"),    # float32 stays exact
+    ("float32", 1, 33, 8, 4, 4, 64, "simt"),
+])
+def test_flash_route_picks_the_path_by_shape_and_dtype(dtype, b, s, skv, h,
+                                                       hk, hd, path):
+    from repro_torch.kernels.flash_attention.ops import flash_route
+    q = torch.empty(b, s, h, hd, dtype=_TORCH_DT[dtype])
+    k = torch.empty(b, skv, hk, hd, dtype=_TORCH_DT[dtype])
+    assert flash_route(q, k) == path
+
+
+def test_flash_attention_witness_rounds_only_p():
+    """``round_p`` changes nothing in float32 and, in bf16, stays within the
+    JAX package's bf16 tolerance of its reference."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(9)
+    shapes = [(1, 96, 4, 64), (1, 96, 2, 64), (1, 96, 2, 64)]
+    q, k, v = (rng.normal(size=sh).astype(np.float32) for sh in shapes)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    assert torch.equal(flash_attention_ref(qt, kt, vt, window=40),
+                       flash_attention_ref(qt, kt, vt, window=40,
+                                           round_p=True))
+    pairs = [_pair(a, "bfloat16") for a in (q, k, v)]
+    got = flash_attention_ref(*(p[1] for p in pairs), window=40,
+                              round_p=True)
+    want = jax_flash_ref(*(p[0] for p in pairs), causal=True, window=40)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-2, atol=3e-2)
+
+
+def _tc_arithmetic(q, k, v, causal, window, bn=128):
+    """The kernel's tc path in plain PyTorch: keys in tiles of ``bn``, a
+    running row max, P = exp(s - max so far) rounded to bf16 before P.V,
+    float32 sums and one division at the end."""
+    from repro_torch.kernels.flash_attention.ref import NEG_INF
+    b, s, h, hd = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, hk, h // hk, hd)
+    m = torch.full((b, hk, h // hk, s), NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hk, h // hk, s, hd)
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, skv, bn):
+        sc = torch.einsum("bskgh,btkh->bkgst", qg,
+                          k[:, k0:k0 + bn].float()) / np.sqrt(hd)
+        kpos = torch.arange(k0, min(k0 + bn, skv))[None, :]
+        keep = torch.ones(s, kpos.shape[1], dtype=torch.bool)
+        if causal:
+            keep &= qpos >= kpos
+        if window:
+            keep &= qpos - kpos < window
+        sc.masked_fill_(~keep, NEG_INF)
+        mn = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - mn)
+        p = torch.exp(sc - mn[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgst,btkh->bkgsh", p.bfloat16().float(),
+            v[:, k0:k0 + bn].float())
+        m = mn
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, s, h, hd).bfloat16()
+
+
+@pytest.mark.parametrize("s,hd,window", [(640, 120, 256), (400, 64, 0)])
+def test_flash_attention_tolerance_takes_p_rounding_not_a_dropped_tile(
+        s, hd, window):
+    """``allowed_error`` with the witness passes the tc path's arithmetic
+    (P rounded to bf16 against a running max) element by element, and
+    rejects the same arithmetic with v zeroed over 128 keys at the window
+    edge of the last 128 query rows, in those rows too."""
+    from repro_torch.kernels.flash_attention.ref import allowed_error
+    rng = np.random.default_rng(s)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, s, nh, hd)).astype(
+        np.float32)).bfloat16() for nh in (8, 2, 2))
+    want, allowed = allowed_error(q, k, v, True, window, round_p=True)
+    got = _tc_arithmetic(q, k, v, True, window)
+    assert int(((got.float() - want).abs() > allowed).sum()) == 0
+    e0 = max(0, s - 128 - window + 1) // 128 * 128
+    vz = v.clone()
+    vz[:, e0:e0 + 128] = 0
+    bad = (_tc_arithmetic(q, k, vz, True, window).float() - want).abs() > \
+        allowed
+    assert int(bad[:, -128:].sum()) > 0
+
+
 # ---------------------------------------------------------------------------
 # configs, parameters, layers
 # ---------------------------------------------------------------------------
