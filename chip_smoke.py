@@ -7,13 +7,20 @@
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
 2. Holds each kernel against its plain PyTorch version on the card at the
    paths' shapes and times kernel, plain version and, where one PyTorch
-   call computes the same function, that call (``library_ms``).
-   flash_attention is held on each of its three paths (tc, short, simt),
-   and each check asserts which path its input takes.
+   call computes the same function, that call (``library_ms``); for
+   distance_topk and propagate also the kernels' own device time
+   (torch.profiler) beside the wrapper's CUDA-event time.
+   flash_attention is held on each of its three paths (tc, short, simt)
+   and distance_topk on each of its two routes (tc, simt), and each check
+   asserts which path its input takes; distance_topk's tc route also at a
+   crack's C, at C 7,001, k 1, in bf16 and on near-duplicate records
+   (against float64); propagate's top1 prescale bit for bit against
+   tie_break_prescale.
 3. tasti: builds a TASTI index (``build_tasti``, variant PT, seeded random
    embedder weights) over the synthetic night-street video at 1M frames and
    serves a three-query session twice through a cracking ``QueryEngine``
-   with resident scoring.
+   with resident scoring; every distance_topk launch of the build and of
+   the cracks must take the tc route.
 4. lm_prefill: h2o-danube-3-4b at its published widths (seeded random bf16
    weights) through ``make_prefill_step`` on one 32,768-token prompt, every
    attention layer through the ``flash_attention`` kernel's tc path; the
@@ -48,9 +55,10 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet peaks (float32 without tensor cores; dense bf16/f16
-# tensor cores; HBM3)
+# H100 SXM data sheet peaks (float32 without tensor cores; dense TF32 and
+# bf16/f16 tensor cores; HBM3)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
@@ -74,19 +82,78 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> dict:
+    """{kernel name: device ms per call} of ``fn`` over ``iters`` calls
+    (after one warm-up), from torch.profiler's kernel records: the kernels'
+    own time, without the wrapper's host time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / iters
+    return out
+
+
+def own_time(fn, iters: int, main: str) -> dict:
+    """The kernels' own device time per call (all of them, and the one
+    whose name holds ``main``) and the kernels launched per call."""
+    ms = device_ms(fn, iters)
+    assert ms, "torch.profiler recorded no kernel"
+    return {"device_ms": sum(ms.values()),
+            "main_device_ms": sum(v for n, v in ms.items() if main in n),
+            "kernels": sorted(ms)}
+
+
 def bound_ms(n_bytes: float, n_flops: float, peak: float = PEAK_F32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def mangled_label(fn: str) -> str:
+    """``name<args>`` for a mangled kernel: the length-prefixed component
+    that ends in ``_kernel`` and its template arguments (f32, f16, bf16,
+    integers, flags as 0/1)."""
+    pos = 3 if fn.startswith("_ZN") else 2
+    while True:
+        m = re.match(r"\d+", fn[pos:])
+        if not m:
+            return fn
+        pos += m.end()
+        name = fn[pos:pos + int(m.group())]
+        pos += len(name)
+        if name.endswith("_kernel"):
+            break
+    rest, args = fn[pos:], []
+    if rest.startswith("I"):
+        rest = rest[1:]
+        while rest and not rest.startswith("E"):
+            t = re.match(r"f|6__half|13__nv_bfloat16|Li(\d+)E|Lb([01])E",
+                         rest)
+            if not t:
+                break
+            args.append({"f": "f32", "6__half": "f16",
+                         "13__nv_bfloat16": "bf16"}.get(
+                             t.group(), t.group(1) or t.group(2)))
+            rest = rest[t.end():]
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
 def entry_label(fn: str) -> str:
-    """A short name for a mangled flash_attention entry function: its path,
-    its input type and the head-dim bound of its tiles."""
+    """A short name for a mangled entry function.  flash_attention: its
+    path, its input type and the head-dim bound of its tiles; others: the
+    kernel's name and its template arguments (types, integers, flags)."""
     m = re.search(r"flash_(tc|short|fwd)_kernelI(13__nv_bfloat16|f)?(?:Li("
                   r"\d+))?", fn)
     if not m:
-        return fn
+        return mangled_label(fn)
     path = {"fwd": "simt"}.get(m.group(1), m.group(1))
     dtype = {"f": " f32", "13__nv_bfloat16": " bf16", None: " bf16"}[
         m.group(2)]
@@ -161,34 +228,62 @@ class Phase:
         return False
 
 
+def topk_bytes(rows: int, c: int, d: int, k: int, item: int = 4) -> int:
+    return item * (rows * d + c * d) + 8 * rows * k
+
+
 def check_distance_topk(dev, rows: int, c: int, d: int, k: int,
                         full_rows: int):
-    from repro_torch.kernels.distance_topk.ops import distance_topk
+    """Both routes at the build's shape against the plain version (rtol and
+    atol 1e-4), ids reproducing distances; each route's CUDA-event time, its
+    kernels' own device time (torch.profiler) and bound: simt against the
+    float32 SIMT peak, tc (3xTF32: three products) against the TF32 one."""
+    from repro_torch.kernels.distance_topk.ops import (_launch, distance_topk,
+                                                       distance_topk_route)
     from repro_torch.kernels.distance_topk.ref import distance_topk_ref
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(rows, d, device=dev, generator=g)
     r = torch.randn(c, d, device=dev, generator=g)
-    dk, ik = distance_topk(x, r, k)
+    assert distance_topk_route(x, r, k) == "tc"
     dp, _ = distance_topk_ref(x, r, k)
-    torch.cuda.synchronize()
-    err = float((dk - dp).abs().max())
-    torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-4)
-    # the returned ids reproduce the returned distances (direct form)
-    d_ids = ((x[:, None, :] - r[ik.long()]) ** 2).sum(-1)
-    torch.testing.assert_close(d_ids, dk, rtol=1e-3, atol=1e-3)
-    assert int(ik.min()) >= 0 and int(ik.max()) < c
-    ms = time_ms(lambda: distance_topk(x, r, k), 10)
+    flops = 2.0 * rows * c * d
+    n_bytes = topk_bytes(rows, c, d, k)
+    bounds = {"simt": bound_ms(n_bytes, flops),
+              "tc": bound_ms(n_bytes, 3 * flops, PEAK_TF32_FLOPS)}
+    routes = {}
+    for route in ("tc", "simt"):
+        before = distance_topk.launches_by_path[route]
+        dk, ik = _launch(x, r, k, route)
+        torch.cuda.synchronize()
+        assert distance_topk.launches_by_path[route] == before + 1, route
+        err = float((dk - dp).abs().max())
+        torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-4)
+        # the returned ids reproduce the returned distances (direct form)
+        d_ids = ((x[:, None, :] - r[ik.long()]) ** 2).sum(-1)
+        torch.testing.assert_close(d_ids, dk, rtol=1e-3, atol=1e-3)
+        assert int(ik.min()) >= 0 and int(ik.max()) < c
+        del dk, ik, d_ids
+        call = lambda: _launch(x, r, k, route)  # noqa: E731
+        routes[route] = {"max_abs_err": err, "ms": time_ms(call, 10),
+                         **own_time(call, 5, "distance_topk"),
+                         "bound_ms": bounds[route][0],
+                         "bound_by": bounds[route][1]}
     plain_ms = time_ms(lambda: distance_topk_ref(x, r, k), 3)
     lib_ms = time_ms(lambda: torch.topk(torch.cdist(x, r), k, dim=1,
                                         largest=False), 10)
-    b, by = bound_ms(4 * (rows * d + c * d) + 8 * rows * k, 2.0 * rows * c * d)
-    del dp, d_ids
+    del dp
     # one launch at the main path's full row count (kernel only: the plain
     # (N, C) matrix would not be worth materialising)
     xf = torch.randn(full_rows, d, device=dev, generator=g)
-    full_ms = time_ms(lambda: distance_topk(xf, r, k), 2)
-    fb, _ = bound_ms(4 * (full_rows * d + c * d) + 8 * full_rows * k,
-                     2.0 * full_rows * c * d)
+    fb = {"simt": bound_ms(topk_bytes(full_rows, c, d, k),
+                           2.0 * full_rows * c * d),
+          "tc": bound_ms(topk_bytes(full_rows, c, d, k),
+                         6.0 * full_rows * c * d, PEAK_TF32_FLOPS)}
+    for route in ("tc", "simt"):
+        call = lambda: _launch(xf, r, k, route)  # noqa: E731
+        routes[route].update(full_ms=time_ms(call, 2),
+                             full_device_ms=own_time(call, 1, "distance_topk")
+                             ["device_ms"], full_bound_ms=fb[route][0])
     # the library calls at the full row count, in chunks of 262,144 rows
     # (one chunk's (rows, C) float32 distances are 7.3 GB)
     chunks = xf.split(262144)
@@ -196,16 +291,111 @@ def check_distance_topk(dev, rows: int, c: int, d: int, k: int,
                                               largest=False) for xc in chunks],
                           2)
     del xf, chunks
-    log(f"distance_topk {rows}x{c}x{d} k={k}: max_abs_err {err:.3g} "
-        f"(tol rtol 1e-4 atol 1e-4), kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-        f" ms, cdist+topk {lib_ms:.3f} ms, bound {b:.3f} ms ({by}); at "
-        f"{full_rows} rows kernel {full_ms:.3f} ms, cdist+topk "
-        f"{full_lib_ms:.3f} ms, bound {fb:.3f} ms")
+    for route, m in routes.items():
+        log(f"distance_topk[{route}] {rows}x{c}x{d} k={k}: max_abs_err "
+            f"{m['max_abs_err']:.3g} (tol rtol 1e-4 atol 1e-4), kernel "
+            f"{m['ms']:.3f} ms (own device time {m['device_ms']:.3f} ms, main "
+            f"kernel {m['main_device_ms']:.3f}), bound {m['bound_ms']:.3f} ms "
+            f"({m['bound_by']}); at {full_rows} rows kernel "
+            f"{m['full_ms']:.3f} ms (device {m['full_device_ms']:.3f}), "
+            f"bound {m['full_bound_ms']:.3f} ms")
+    log(f"distance_topk {rows}x{c}x{d} k={k}: plain {plain_ms:.3f} ms, "
+        f"cdist+topk {lib_ms:.3f} ms; at {full_rows} rows cdist+topk "
+        f"{full_lib_ms:.3f} ms")
+    tc = routes["tc"]
     return {"name": "distance_topk", "shape": [rows, c, d, k],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
-            "full_rows": full_rows, "full_ms": full_ms, "full_bound_ms": fb,
-            "full_library_ms": full_lib_ms}
+            "max_abs_err": max(m["max_abs_err"] for m in routes.values()),
+            "ms": tc["ms"], "device_ms": tc["device_ms"],
+            "plain_ms": plain_ms, "bound_ms": tc["bound_ms"],
+            "bound_by": tc["bound_by"],
+            "bound_f32_simt_ms": bounds["simt"][0], "library_ms": lib_ms,
+            "full_rows": full_rows, "full_ms": tc["full_ms"],
+            "full_bound_ms": tc["full_bound_ms"],
+            "full_library_ms": full_lib_ms, "routes": routes}
+
+
+def check_distance_topk_cases(dev, rows: int, full_rows: int):
+    """The tc route at the main path's other shapes, against the plain
+    version (float32 at rtol/atol 1e-4, bf16 at 5e-2) with ids reproducing
+    their distances: a crack's C (1,000; also timed at the full row count),
+    a C that is no tile multiple (7,001), k 1, bf16 inputs (timed, bound at
+    the bf16 peak); and near-duplicate records (1e-2 from their rep, |x|^2
+    ~ 1,000), within 2x the plain float32 version's own error against a
+    float64 computation."""
+    from repro_torch.kernels.distance_topk.ops import (_launch, distance_topk,
+                                                       distance_topk_route)
+    from repro_torch.kernels.distance_topk.ref import distance_topk_ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = []
+    for label, c, d, k, dtype in [("crack", 1000, 128, 8, torch.float32),
+                                  ("c7001", 7001, 128, 8, torch.float32),
+                                  ("k1", 7000, 128, 1, torch.float32),
+                                  ("bf16", 7000, 128, 8, torch.bfloat16)]:
+        x = torch.randn(rows, d, device=dev, generator=g).to(dtype)
+        r = torch.randn(c, d, device=dev, generator=g).to(dtype)
+        assert distance_topk_route(x, r, k) == "tc", label
+        before = distance_topk.launches_by_path["tc"]
+        dk, ik = distance_topk(x, r, k)
+        dp, _ = distance_topk_ref(x, r, k)
+        torch.cuda.synchronize()
+        assert distance_topk.launches_by_path["tc"] == before + 1, label
+        tol = 1e-4 if dtype == torch.float32 else 5e-2
+        err = float((dk - dp).abs().max())
+        torch.testing.assert_close(dk, dp, rtol=tol, atol=tol)
+        d_ids = ((x.float()[:, None, :] - r.float()[ik.long()]) ** 2).sum(-1)
+        torch.testing.assert_close(d_ids, dk, rtol=10 * tol, atol=10 * tol)
+        assert int(ik.min()) >= 0 and int(ik.max()) < c
+        res = {"label": label, "shape": [rows, c, d, k],
+               "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol}
+        del dk, ik, dp, d_ids
+        if label in ("crack", "bf16"):
+            xf = torch.randn(full_rows, d, device=dev, generator=g).to(dtype)
+            call = lambda: distance_topk(xf, r, k)  # noqa: E731
+            flops = 2.0 * full_rows * c * d
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+                else PEAK_TF32_FLOPS
+            bnd, by = bound_ms(topk_bytes(full_rows, c, d, k,
+                                          x.element_size()),
+                               flops * (1 if dtype == torch.bfloat16 else 3),
+                               peak)
+            res.update(full_rows=full_rows, ms=time_ms(call, 3),
+                       device_ms=own_time(call, 2, "distance_topk")
+                       ["device_ms"], bound_ms=bnd, bound_by=by)
+            if label == "crack":
+                res["simt_ms"] = time_ms(lambda: _launch(xf, r, k, "simt"), 3)
+            del xf
+        log(f"distance_topk[tc {label}] {rows}x{c}x{d} k={k} "
+            f"{str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol:g})" + (
+                f"; at {full_rows} rows {res['ms']:.3f} ms (device "
+                f"{res['device_ms']:.3f}), bound {res['bound_ms']:.3f} ms "
+                f"({res['bound_by']})" if "ms" in res else "") + (
+                f", simt {res['simt_ms']:.3f} ms" if "simt_ms" in res
+                else ""))
+        out.append(res)
+    # near-duplicates: the expanded form cancels ~2,000 down to ~0.013
+    c, d, k = 7000, 128, 8
+    reps = torch.randn(c, d, device=dev, generator=g) + 2.7
+    pick = torch.randint(0, c, (rows,), device=dev, generator=g)
+    x = reps[pick] + 1e-2 * torch.randn(rows, d, device=dev, generator=g)
+    x64, r64 = x.double(), reps.double()
+    d64 = ((x64 * x64).sum(1)[:, None] + (r64 * r64).sum(1)[None, :]
+           - 2.0 * (x64 @ r64.T))
+    want = torch.sort(d64, 1).values[:, :k]
+    del d64
+    dk, _ = distance_topk(x, reps, k)
+    dp, _ = distance_topk_ref(x, reps, k)
+    err_tc = float((dk.double() - want).abs().max())
+    err_f32 = float((dp.double() - want).abs().max())
+    log(f"distance_topk[tc near-duplicates] {rows}x{c}x{d} k={k}, |x|^2 "
+        f"{float((x64 * x64).sum(1).mean()):.1f}, own-rep d2 "
+        f"{float(want[:, 0].mean()):.4f}: error against float64 tc "
+        f"{err_tc:.3g}, plain float32 {err_f32:.3g} (allowed 2x: "
+        f"{2 * err_f32:.3g})")
+    assert 0 < err_f32 and err_tc <= 2 * err_f32, (err_tc, err_f32)
+    out.append({"label": "near-duplicates", "shape": [rows, c, d, k],
+                "dtype": "float32", "err_vs_float64": err_tc,
+                "plain_err_vs_float64": err_f32})
+    return out
 
 
 def check_fpf_update(dev, n: int, d: int):
@@ -241,9 +431,16 @@ def check_fpf_update(dev, n: int, d: int):
 
 
 def check_propagate(dev, n: int, c: int, k: int, n_classes: int = 9):
+    """Each mode against the plain version (rtol 1e-5; categorical exact
+    but where the plain top-2 votes tie to float32 rounding), the top1
+    prescale against tie_break_prescale bit for bit; per mode the wrapper's
+    CUDA-event time, the kernels' own device time and kernels per call
+    (torch.profiler: 1 for numeric and categorical, at most 2 for top1)."""
     from repro_torch.kernels.distance_topk.ops import PAD_DIST
     from repro_torch.kernels.propagate.ops import propagate
-    from repro_torch.kernels.propagate.ref import masked_weights, propagate_ref
+    from repro_torch.kernels.propagate.ref import (masked_weights,
+                                                   propagate_ref,
+                                                   tie_break_prescale)
     g = torch.Generator(device=dev).manual_seed(3)
     ids = torch.randint(0, c, (n, k), device=dev, generator=g,
                         dtype=torch.int32)
@@ -275,18 +472,35 @@ def check_propagate(dev, n: int, c: int, k: int, n_classes: int = 9):
         else:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
             err = float(diff.max())
-        ms = time_ms(lambda: propagate(scores, ids, d2, mode, **kw), 50)
+        call = lambda: propagate(scores, ids, d2, mode, **kw)  # noqa: E731
+        ms = time_ms(call, 50)
+        own = own_time(call, 20, "propagate")
+        assert len(own["kernels"]) <= (2 if mode == "top1" else 1), own
         plain_ms = time_ms(
             lambda: propagate_ref(scores, ids, d2, mode, **kw), 10)
-        modes[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        modes[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       **own}
         log(f"propagate[{mode}] {n}x{k}, C={c}: max_abs_err {err:.3g}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (own device time {own['device_ms']:.4f} ms,"
+            f" {len(own['kernels'])} kernel(s) a call), plain "
+            f"{plain_ms:.4f} ms")
+    # the prescale the card computed, read back where the nearest rep of
+    # row 0 scores 0 at distance 1: out[0] = -prescale
+    sc0, ids0, d20 = numeric.clone(), ids.clone(), d2.clone()
+    sc0[0], ids0[0, 0], d20[0, 0] = 0.0, 0, 1.0
+    got = -propagate(sc0, ids0, d20, "top1")[0]
+    want = tie_break_prescale(sc0, d20)
+    assert got.view(torch.int32) == want.view(torch.int32), (got, want)
+    modes["top1"]["prescale"] = float(want)
+    log(f"propagate[top1] prescale on the card {float(got):.9g}, "
+        f"tie_break_prescale {float(want):.9g}: bitwise equal")
     ops_per_row = {"numeric": 6 * k, "top1": 4, "categorical": 6 * k * k}
     b, by = bound_ms(8 * n * k + 4 * c + 4 * n, ops_per_row["numeric"] * n)
     log(f"propagate bound {b:.4f} ms ({by})")
     return {"name": "propagate", "shape": [n, k, c],
             "max_abs_err": max(m["max_abs_err"] for m in modes.values()),
             "ms": modes["numeric"]["ms"],
+            "device_ms": modes["numeric"]["device_ms"],
             "plain_ms": modes["numeric"]["plain_ms"], "bound_ms": b,
             "bound_by": by, "library_ms": None, "modes": modes}
 
@@ -699,9 +913,10 @@ def main(argv=None) -> None:
     ptxas = ptxas_report(_build.build_dir(),
                          {n: p.stem.split("-")[-1] for n, p in libs.items()})
     log(f"build: {time.perf_counter() - t0:.2f} s ({ptxas_summary(ptxas)})")
-    for fn, regs, spill in ptxas["flash_attention"]:
-        log(f"  ptxas flash_attention {fn}: {regs} registers, {spill} B "
-            f"spill stores")
+    for name in ("flash_attention", "distance_topk", "propagate"):
+        for fn, regs, spill in ptxas[name]:
+            log(f"  ptxas {name} {fn}: {regs} registers, {spill} B spill "
+                f"stores")
 
     from repro_torch.core.embedder import Embedder, EmbedderConfig
     from repro_torch.core.engine import QueryEngine, QuerySpec
@@ -709,23 +924,29 @@ def main(argv=None) -> None:
     from repro_torch.core.propagation import propagate_numeric
     from repro_torch.core.schema import make_workload
     from repro_torch.core.session import QuerySession
+    from repro_torch.kernels.distance_topk import ops as topk_ops
     from repro_torch.kernels.distance_topk.ops import distance_topk
     from repro_torch.core.embedder import embed_all
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          reset_launches)
     from repro_torch.kernels.fpf_update.ops import fpf_update
+    from repro_torch.kernels.propagate import ops as propagate_ops
     from repro_torch.kernels.propagate.ops import propagate
 
     dev = torch.device("cuda", 0)
     cfg = TastiConfig(n_reps=args.reps, k=8, embed_dim=128,
                       random_fraction=0.1, seed=0)
     t0 = time.perf_counter()
+    check_rows = min(args.check_rows, args.frames)
     results = [
-        check_distance_topk(dev, min(args.check_rows, args.frames), cfg.n_reps,
-                            cfg.embed_dim, cfg.k, args.frames),
+        check_distance_topk(dev, check_rows, cfg.n_reps, cfg.embed_dim, cfg.k,
+                            args.frames),
         check_fpf_update(dev, args.frames, cfg.embed_dim),
         check_propagate(dev, args.frames, cfg.n_reps, cfg.k),
     ]
+    results[0]["checks"] = check_distance_topk_cases(dev, check_rows,
+                                                     args.frames)
+    torch.cuda.empty_cache()
     # flash_attention, timed: (a) a danube-3-4b layer (GQA 32/8, hd 120,
     # bf16, causal, window 4096; tc), the same in float32 (a32; simt), where
     # a wrong window edge or key-tile skip cannot hide in rounding; (b) the
@@ -778,16 +999,19 @@ def main(argv=None) -> None:
 
     wrappers = {"distance_topk": distance_topk, "fpf_update": fpf_update,
                 "propagate": propagate}
-    for w in wrappers.values():
-        w.launches = 0
+    fpf_update.launches = 0
+    topk_ops.reset_launches()
+    propagate_ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with Phase("build_tasti", args.profile) as ph:
         system = build_tasti(wl, cfg, variant="PT", embed_params=params,
                              device=dev)
     index = system.index
+    build_paths = dict(distance_topk.launches_by_path)
     log(f"phase build_tasti: {ph.seconds:.2f} s (reps {index.n_reps}, "
         f"fpf_update launches {fpf_update.launches}, distance_topk launches "
-        f"{distance_topk.launches})")
+        f"{distance_topk.launches} {build_paths})")
+    assert build_paths["simt"] == 0 and build_paths["tc"] > 0, build_paths
     assert index.topk_ids.shape == (args.frames, cfg.k)
     assert np.isfinite(index.topk_d2).all()
     assert 0 <= index.topk_ids.min() and index.topk_ids.max() < index.n_reps
@@ -799,6 +1023,7 @@ def main(argv=None) -> None:
                        budget=500),
              QuerySpec(kind="limit", score="score_rare", k_results=5)]
     true_mean = float(wl.counts.mean())
+    n_cracked = 0
     for run in (1, 2):
         with Phase(f"session{run}", args.profile if run == 1 else None) as ph:
             out = QuerySession(engine, specs).execute()
@@ -808,6 +1033,7 @@ def main(argv=None) -> None:
                 f"selected {None if r.selected is None else len(r.selected)}"
                 f" invocations {r.n_invocations} fresh {r.n_oracle_fresh} "
                 f"cached {r.n_oracle_cached} cracked {r.n_cracked}")
+        n_cracked += sum(r.n_cracked or 0 for r in out.results)
         agg = out.results[0]
         assert abs(agg.estimate - true_mean) <= 3 * agg.ci_half_width, \
             (agg.estimate, agg.ci_half_width, true_mean)
@@ -820,6 +1046,14 @@ def main(argv=None) -> None:
     assert proxy.shape == (args.frames,) and np.isfinite(proxy).all()
     np.testing.assert_allclose(proxy, host, rtol=1e-5, atol=1e-5)
     launches = {name: w.launches for name, w in wrappers.items()}
+    topk_paths = {"build": build_paths, "cracks": {
+        r: n - build_paths[r] for r, n in distance_topk.launches_by_path.items()}}
+    log(f"distance_topk launches by route over the tasti path: {topk_paths}; "
+        f"propagate launches by mode {propagate.launches_by_path}, top1 "
+        f"prescales by the plain version {propagate.plain_prescales}")
+    assert topk_paths["cracks"]["simt"] == 0, topk_paths
+    assert topk_paths["cracks"]["tc"] > 0 or n_cracked == 0, topk_paths
+    assert propagate.plain_prescales == 0
     log(f"launches on the main path: {launches}; engine {engine.stats}; "
         f"resident {engine.resident.stats}; index version {index.version}, "
         f"reps {index.n_reps}; true mean count {true_mean:.6f}; peak device "
@@ -901,6 +1135,12 @@ def main(argv=None) -> None:
                               "embedder": emb_launches},
         "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
         "lm_decode_window": lm_out["decode_window"]})
+    results[0]["launches_by_path"] = topk_paths
+    results[0]["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
+                               for fn, regs, spill in ptxas["distance_topk"]}
+    results[2]["launches_by_path"] = dict(propagate.launches_by_path)
+    results[2]["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
+                               for fn, regs, spill in ptxas["propagate"]}
     kernels = []
     for res in results:
         name = res["name"]

@@ -587,33 +587,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call: fetched through the runtime,
-// so the library needs no -lcuda.
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // (hd, heads, seq, batch) bf16, innermost first; boxes of 64 columns x 1
 // head x 128 rows x 1 batch with the 128-byte swizzle; zeros out of bounds.
 static bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads,
@@ -625,7 +598,7 @@ static bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads,
                                  (cuuint64_t)seq * heads * hd * 2};
   const cuuint32_t box[4] = {64, 1, BN, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return hopper::encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -637,7 +610,7 @@ template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
            int skv, int h, int hk, int hd, int causal, int window,
            cudaStream_t st) {
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  if (hopper::encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, hd, h, s, b) || !make_map(&mk, k, hd, hk, skv, b) ||
       !make_map(&mv, v, hd, hk, skv, b))

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}
 
 
 def build_dir() -> pathlib.Path:
@@ -125,11 +126,32 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, status: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+def bind(name: str, symbol: str, argtypes: list):
+    """The launcher ``symbol`` of kernel ``name``, its argument types set
+    once (ctypes.c_void_p for pointers and the stream, c_int, c_float) and
+    an int (a cudaError_t) returned."""
+    key = (name, symbol)
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+def check(name: str, status: int, what: str) -> None:
+    """Raise if a launcher of kernel ``name`` returned a CUDA error code."""
     if status != 0:
-        msg = lib.repro_error_string(status).decode()
+        msg = load(name).repro_error_string(status).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({status})")
+
+
+def aligned16(t):
+    """t, contiguous, at a 16-byte aligned address (TMA and 16-byte loads
+    need one): a copy only where the view is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ptr(t) -> ctypes.c_void_p:

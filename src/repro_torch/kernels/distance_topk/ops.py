@@ -1,5 +1,17 @@
 """Wrapper of the ``distance_topk`` CUDA kernel: CPU tensors take the plain
-version, CUDA tensors launch the kernel (or raise)."""
+version, CUDA tensors launch the kernel (or raise).
+
+The kernel has two routes (``csrc/distance_topk.cu``), picked here from
+dtype and shape alone by :func:`distance_topk_route`:
+
+- ``"tc"``: the products on the tensor cores (``wgmma``, rep tiles fed by
+  TMA); 3xTF32 for float32 inputs, one pass for bfloat16/float16.  It takes
+  D <= :data:`TC_MAX_D` with rows of a multiple of 16 bytes (TMA's row
+  stride: D % 4 == 0 in float32, D % 8 == 0 in 16-bit) and k <=
+  :data:`TC_MAX_K` (the lists each thread keeps in registers).  The main
+  path's 128-d float32 embeddings at k 8 and 1 take it.
+- ``"simt"``: everything else, exact float32 on the CUDA cores.
+"""
 from __future__ import annotations
 
 import ctypes
@@ -19,10 +31,32 @@ PAD_DIST = 2.9e38
 #: Largest k the kernel keeps in registers.
 MAX_K = 32
 
+#: The kernel's routes, as its ROUTE_* codes.
+ROUTES = ("simt", "tc")
+#: Largest k and depth of the tc route (its lists and its tiles).
+TC_MAX_K = 8
+TC_MAX_D = 128
+#: Reps per tile of the tc route: its rep-norm scratch is padded to it.
+TC_BLOCK_C = 64
+
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def _launch(x: torch.Tensor, r: torch.Tensor, k: int):
+def distance_topk_route(x: torch.Tensor, r: torch.Tensor, k: int) -> str:
+    """The kernel route that x (N,D) against r (C,D) at k takes: ``"tc"``
+    where D <= 128, D * itemsize % 16 == 0 and k <= 8, else ``"simt"``;
+    from dtype and shape only."""
+    d = x.shape[1]
+    if d <= TC_MAX_D and d * x.element_size() % 16 == 0 and k <= TC_MAX_K:
+        return "tc"
+    return "simt"
+
+
+def _launch(x: torch.Tensor, r: torch.Tensor, k: int, route: str):
+    """The kernel on ``route`` for 1 <= k <= C (the card's tests and
+    chip_smoke.py time both routes at one shape through it)."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown distance_topk route {route!r}")
     if x.dtype not in _DTYPES or r.dtype != x.dtype:
         raise TypeError(f"distance_topk kernel takes float32/float16/bfloat16 "
                         f"x and r of one dtype, got {x.dtype} and {r.dtype}")
@@ -31,26 +65,33 @@ def _launch(x: torch.Tensor, r: torch.Tensor, k: int):
     if k > MAX_K:
         raise ValueError(f"distance_topk kernel keeps at most {MAX_K} "
                          f"neighbours, asked for {k}")
+    if route == "tc" and distance_topk_route(x, r, k) != "tc":
+        raise ValueError(f"the tc route cannot take x {tuple(x.shape)} "
+                         f"{x.dtype} at k {k}")
     n, d = x.shape
     c = r.shape[0]
     if max(n, c) >= 2 ** 31:
         raise ValueError(f"{n} records x {c} reps exceeds the kernel's int32 "
                          "row counts")
-    x, r = x.contiguous(), r.contiguous()
-    out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
-    xsq = torch.empty((n,), dtype=torch.float32, device=x.device)
-    rsq = torch.empty((c,), dtype=torch.float32, device=x.device)
-    lib = _build.load("distance_topk")
-    fn = lib.distance_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    x, r = _build.aligned16(x), _build.aligned16(r)
+    dev = x.device
+    out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
+    xsq = torch.empty((n,), dtype=torch.float32, device=dev)
+    c_pad = -(-c // TC_BLOCK_C) * TC_BLOCK_C
+    rsq = torch.empty((c_pad,), dtype=torch.float32, device=dev)
+    rsplit = (torch.empty((2, c, d), dtype=torch.float32, device=dev)
+              if route == "tc" and x.dtype == torch.float32 else None)
+    fn = _build.bind("distance_topk", "distance_topk_launch",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p] * 3)
     status = fn(_build.ptr(x), _build.ptr(r), _build.ptr(xsq), _build.ptr(rsq),
-                n, c, d, k, _DTYPES[x.dtype], _build.ptr(out_d),
+                None if rsplit is None else _build.ptr(rsplit), n, c, d, k,
+                _DTYPES[x.dtype], ROUTES.index(route), _build.ptr(out_d),
                 _build.ptr(out_i), _build.stream_of(x))
-    _build.check(lib, status, "distance_topk")
+    _build.check("distance_topk", status, f"distance_topk ({route})")
     distance_topk.launches += 1
+    distance_topk.launches_by_path[route] += 1
     return out_d, out_i
 
 
@@ -72,7 +113,7 @@ def distance_topk(x: torch.Tensor, r: torch.Tensor, k: int):
     elif x.device.type == "cpu":
         d, i = distance_topk_ref(x, r, k_eff)
     elif x.device.type == "cuda":
-        d, i = _launch(x, r, k_eff)
+        d, i = _launch(x, r, k_eff, distance_topk_route(x, r, k_eff))
     else:
         raise ValueError(f"no distance_topk for device {x.device}")
     if k_eff < k:  # fewer reps than k: sentinel distances, in-range ids
@@ -85,5 +126,12 @@ def distance_topk(x: torch.Tensor, r: torch.Tensor, k: int):
     return d, i
 
 
-#: kernel launches since the count was last reset
+def reset_launches() -> None:
+    """Set the launch counts, total and per route, to 0."""
+    distance_topk.launches = 0
+    distance_topk.launches_by_path = dict.fromkeys(ROUTES, 0)
+
+
+#: kernel launches since the count was last reset, in all and per route
 distance_topk.launches = 0
+distance_topk.launches_by_path = dict.fromkeys(ROUTES, 0)

@@ -64,13 +64,6 @@ def flash_route(q: torch.Tensor, k: torch.Tensor) -> str:
     return "simt"
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """t, contiguous, at a 16-byte aligned address (TMA and the 16-byte
-    copies of the short path need one)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: int) -> torch.Tensor:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -87,17 +80,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             route == "simt" and (s + BLOCK_Q - 1) // BLOCK_Q > 65535):
         raise ValueError(f"flash_attention kernel cannot take q "
                          f"{tuple(q.shape)} against k {tuple(k.shape)}")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = (_build.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.bind("flash_attention", "flash_attention_launch",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                     + [ctypes.c_void_p])
     status = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
                 b, s, skv, h, hk, hd, int(causal), int(window),
                 _DTYPES[q.dtype], ROUTES.index(route), _build.stream_of(q))
-    _build.check(lib, status, f"flash_attention ({route})")
+    _build.check("flash_attention", status,
+                 f"flash_attention ({route})")
     flash_attention.launches += 1
     flash_attention.launches_by_path[route] += 1
     return out

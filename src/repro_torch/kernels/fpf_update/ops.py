@@ -32,15 +32,13 @@ def _launch(x: torch.Tensor, rep: torch.Tensor, min_d2: torch.Tensor):
     best = torch.empty((1,), dtype=torch.int64, device=x.device)  # scratch
     idx = torch.empty((), dtype=torch.int32, device=x.device)
     val = torch.empty((), dtype=torch.float32, device=x.device)
-    lib = _build.load("fpf_update")
-    fn = lib.fpf_update_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + \
-        [ctypes.c_void_p] * 5
-    fn.restype = ctypes.c_int
+    fn = _build.bind("fpf_update", "fpf_update_launch",
+                     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 5)
     status = fn(_build.ptr(x), _build.ptr(rep), _build.ptr(min_d2), n, d,
                 _DTYPES[x.dtype], _build.ptr(new_min), _build.ptr(best),
                 _build.ptr(idx), _build.ptr(val), _build.stream_of(x))
-    _build.check(lib, status, "fpf_update")
+    _build.check("fpf_update", status, "fpf_update")
     fpf_update.launches += 1
     return new_min, idx, val
 

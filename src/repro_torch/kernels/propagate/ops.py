@@ -16,6 +16,14 @@ from repro_torch.kernels.propagate.ref import (
 )
 
 
+#: Blocks of the top-1 statistics kernel (its partial max and min gap).
+STATS_BLOCKS = 528
+#: Largest C whose top-1 prescale the card computes pairwise (C^2 / 2
+#: differences); above it the plain tie_break_prescale runs on the device.
+PAIRWISE_MAX_C = 32768
+_THREADS = 256   # csrc/propagate.cu's THREADS
+
+
 def _launch(rep_scores, topk_ids, topk_d2, mode, n_classes, clip01, eps):
     n, k = topk_ids.shape
     if k == 0 or topk_d2.shape != (n, k) or rep_scores.ndim != 1:
@@ -25,25 +33,33 @@ def _launch(rep_scores, topk_ids, topk_d2, mode, n_classes, clip01, eps):
         raise ValueError(f"{n} records exceed the kernel's int32 row count")
     dev = topk_ids.device
     scores = rep_scores.to(device=dev, dtype=torch.float32).contiguous()
-    ids = topk_ids.to(torch.int32).contiguous()
-    d2 = topk_d2.to(torch.float32).contiguous()
+    ids = _build.aligned16(topk_ids.to(torch.int32))
+    d2 = _build.aligned16(topk_d2.to(torch.float32))
+    c = scores.shape[0]
+    prescale = stats = None
     if mode == "top1":
-        prescale = tie_break_prescale(scores, d2).reshape(1)
-    else:
-        prescale = torch.zeros((1,), dtype=torch.float32, device=dev)
+        if c <= PAIRWISE_MAX_C:
+            stats = torch.empty((2 * STATS_BLOCKS,), dtype=torch.float32,
+                                device=dev)
+        else:
+            prescale = tie_break_prescale(scores, d2).reshape(1)
+            propagate.plain_prescales += 1
+    strips = max(1, STATS_BLOCKS * _THREADS // max(c, 1))
     out = torch.empty((n,), dtype=torch.float32, device=dev)
-    lib = _build.load("propagate")
-    fn = lib.propagate_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p] + [ctypes.c_int] * 5 + \
-        [ctypes.c_float] * 2 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
-    status = fn(_build.ptr(scores), scores.shape[0], _build.ptr(ids),
-                _build.ptr(d2), n, k, MODES.index(mode), int(n_classes or 0),
-                int(bool(clip01)), eps, PAD_DIST, _build.ptr(prescale),
-                _build.ptr(out), _build.stream_of(out))
-    _build.check(lib, status, "propagate")
+    fn = _build.bind("propagate", "propagate_launch",
+                     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p] + [ctypes.c_int] * 5
+                     + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    status = fn(_build.ptr(scores), c, _build.ptr(ids), _build.ptr(d2), n, k,
+                MODES.index(mode), int(n_classes or 0), int(bool(clip01)),
+                eps, PAD_DIST,
+                None if prescale is None else _build.ptr(prescale),
+                None if stats is None else _build.ptr(stats), STATS_BLOCKS,
+                strips, _build.ptr(out), _build.stream_of(out))
+    _build.check("propagate", status, f"propagate ({mode})")
     propagate.launches += 1
+    propagate.launches_by_path[mode] += 1
     return out
 
 
@@ -75,5 +91,17 @@ def propagate(rep_scores: torch.Tensor, topk_ids: torch.Tensor,
     raise ValueError(f"no propagate for device {topk_ids.device}")
 
 
-#: kernel launches since the count was last reset
+def reset_launches() -> None:
+    """Set the launch counts (in all, per mode, top-1 prescales computed by
+    the plain version) to 0."""
+    propagate.launches = 0
+    propagate.launches_by_path = dict.fromkeys(MODES, 0)
+    propagate.plain_prescales = 0
+
+
+#: wrapper calls that launched the kernel since the counts were last reset,
+#: in all and per mode; top1 calls whose prescale the plain
+#: tie_break_prescale computed (C above PAIRWISE_MAX_C)
 propagate.launches = 0
+propagate.launches_by_path = dict.fromkeys(MODES, 0)
+propagate.plain_prescales = 0

@@ -44,6 +44,24 @@ def tie_break_prescale(rep_scores: torch.Tensor,
     return eps / (1.0 + d0.max())
 
 
+def tie_break_prescale_pairwise(rep_scores: torch.Tensor,
+                                topk_d2: torch.Tensor) -> torch.Tensor:
+    """:func:`tie_break_prescale` the way the card computes it
+    (``top1_stats_kernel`` in csrc/propagate.cu): the smallest positive
+    ``|s_i - s_j|`` over all pairs of scores, which is the smallest positive
+    gap between neighbours in sorted order (rounding is monotone), and the
+    same max and formula.  Equal to :func:`tie_break_prescale` bit for bit;
+    (C, C) differences, so for small C."""
+    scores = rep_scores.to(torch.float32)
+    cap = torch.tensor(1e-6, dtype=torch.float32, device=scores.device)
+    diff = (scores[None, :] - scores[:, None]).abs().reshape(-1)
+    pos = diff[diff > 0]
+    min_gap = pos.min() if pos.numel() else torch.full_like(cap, float("inf"))
+    eps = torch.minimum(cap, 0.5 * min_gap)
+    d0 = torch.sqrt(torch.clamp_min(topk_d2[:, 0].to(torch.float32), 0.0))
+    return eps / (1.0 + d0.max())
+
+
 def _gather(rep_scores: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return rep_scores.to(torch.float32)[ids.long()]
 

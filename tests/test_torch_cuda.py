@@ -7,13 +7,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.distance_topk.ops import PAD_DIST, distance_topk  # noqa: E402
+from repro_torch.kernels.distance_topk import ops as topk_ops  # noqa: E402
+from repro_torch.kernels.distance_topk.ops import (  # noqa: E402
+    PAD_DIST,
+    distance_topk,
+    distance_topk_route,
+)
 from repro_torch.kernels.distance_topk.ref import distance_topk_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import allowed_error  # noqa: E402
 from repro_torch.kernels.fpf_update.ops import fpf_update  # noqa: E402
 from repro_torch.kernels.fpf_update.ref import fpf_update_ref  # noqa: E402
+from repro_torch.kernels.propagate import ops as propagate_ops  # noqa: E402
 from repro_torch.kernels.propagate.ops import propagate  # noqa: E402
+from repro_torch.kernels.propagate.ref import tie_break_prescale  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -25,25 +32,66 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,c,d,k,dtype", [
-    (1000, 300, 128, 8, torch.float32), (333, 70, 37, 5, torch.float32),
-    (512, 129, 64, 32, torch.float32), (200, 5, 16, 3, torch.float16),
-    (300, 100, 64, 16, torch.bfloat16),
+@pytest.mark.parametrize("n,c,d,k,dtype,route", [
+    (1000, 300, 128, 8, torch.float32, "simt"),
+    (333, 70, 37, 5, torch.float32, "simt"),
+    (512, 129, 64, 32, torch.float32, "simt"),
+    (200, 5, 16, 3, torch.float16, "simt"),
+    (300, 100, 64, 16, torch.bfloat16, "simt"),
+    (1000, 300, 128, 8, torch.float32, "tc"),
+    (2000, 7001, 128, 8, torch.float32, "tc"),     # C no tile multiple
+    (3000, 1000, 128, 8, torch.float32, "tc"),     # a crack's C
+    (1000, 700, 128, 1, torch.float32, "tc"),      # k 1
+    (777, 37, 128, 5, torch.float32, "tc"),        # one tile, mostly past C
+    (513, 70, 40, 8, torch.float32, "tc"),         # D no box multiple
+    (200, 5, 16, 3, torch.float16, "tc"),
+    (300, 100, 64, 8, torch.bfloat16, "tc"),
+    (1000, 300, 128, 8, torch.bfloat16, "tc"),
 ])
-def test_distance_topk_kernel_matches_plain(cuda, n, c, d, k, dtype):
+def test_distance_topk_kernel_matches_plain(cuda, n, c, d, k, dtype, route):
+    """Each route of the kernel against the plain version (float32 at the
+    JAX package's 1e-4; 16-bit inputs at 5e-2), the ids reproducing the
+    distances; the route taken is asserted by its launch count."""
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randn(n, d, device=cuda, generator=g).to(dtype)
     r = torch.randn(c, d, device=cuda, generator=g).to(dtype)
+    if route == "tc":
+        assert distance_topk_route(x, r, k) == "tc"
     before = distance_topk.launches
-    dk, ik = distance_topk(x, r, k)
+    by_path = dict(distance_topk.launches_by_path)
+    dk, ik = topk_ops._launch(x, r, k, route)
     torch.cuda.synchronize()
     assert distance_topk.launches == before + 1
+    by_path[route] += 1
+    assert distance_topk.launches_by_path == by_path
     dp, ip = distance_topk_ref(x, r, k)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(dk, dp, rtol=tol, atol=tol)
-    assert torch.isfinite(dk).all() and int(ik.max()) < c
+    assert torch.isfinite(dk).all()
+    assert int(ik.min()) >= 0 and int(ik.max()) < c
     d_ids = ((x.float()[:, None] - r.float()[ik.long()]) ** 2).sum(-1)
     torch.testing.assert_close(d_ids, dp, rtol=10 * tol, atol=10 * tol)
+
+
+def test_distance_topk_tc_near_duplicates(cuda):
+    """Records 1e-2 from their rep at |x|^2 ~ 1,000: the tc route (3xTF32)
+    within 2x the plain float32 version's own error against float64."""
+    rng = np.random.default_rng(0)
+    reps = rng.normal(size=(700, 128)) + 2.7
+    x = reps[rng.integers(0, 700, 20000)] + 1e-2 * rng.normal(
+        size=(20000, 128))
+    xt = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    rt = torch.as_tensor(reps, dtype=torch.float32, device=cuda)
+    x64, r64 = xt.double(), rt.double()
+    d64 = (x64 * x64).sum(1)[:, None] + (r64 * r64).sum(1)[None] \
+        - 2 * x64 @ r64.T
+    want = torch.sort(d64, 1).values[:, :8]
+    dk, _ = distance_topk(xt, rt, 8)
+    dp, _ = distance_topk_ref(xt, rt, 8)
+    assert distance_topk_route(xt, rt, 8) == "tc"
+    err_tc = float((dk.double() - want).abs().max())
+    err_f32 = float((dp.double() - want).abs().max())
+    assert 0 < err_f32 and err_tc <= 2 * err_f32, (err_tc, err_f32)
 
 
 def test_distance_topk_kernel_ties_and_sentinels(cuda):
@@ -73,7 +121,7 @@ def test_fpf_update_kernel_matches_plain(cuda, n, d):
 
 
 @pytest.mark.parametrize("mode", ["numeric", "top1", "categorical"])
-@pytest.mark.parametrize("c", [50, 20000])             # smem and global path
+@pytest.mark.parametrize("c", [50, 20000])
 def test_propagate_kernel_matches_plain(cuda, mode, c):
     rng = np.random.default_rng(c)
     n, k = 5000, 8
@@ -89,6 +137,83 @@ def test_propagate_kernel_matches_plain(cuda, mode, c):
     want = propagate(s.cpu(), ids.cpu(), d2.cpu(), mode,
                      clip01=(mode == "numeric"), **kw)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["numeric", "top1", "categorical"])
+@pytest.mark.parametrize("k", [6, 12])
+def test_propagate_kernel_matches_plain_at_any_k(cuda, mode, k):
+    """The generic kernel (k other than 8): scalar rows (k 6) and 16-byte
+    rows at run time (k 12), against the plain version."""
+    rng = np.random.default_rng(k)
+    c, n = 3000, 4000
+    kw = {"n_classes": 4} if mode == "categorical" else {}
+    s = torch.as_tensor(rng.integers(0, 4, c) if kw else rng.uniform(0, 1, c),
+                        dtype=torch.float32, device=cuda)
+    ids = torch.as_tensor(rng.integers(0, c, (n, k)), dtype=torch.int32,
+                          device=cuda)
+    d2 = torch.as_tensor(np.sort(rng.uniform(0, 9, (n, k)), 1),
+                         dtype=torch.float32, device=cuda)
+    d2[:50, -2:] = PAD_DIST
+    got = propagate(s, ids, d2, mode, **kw)
+    want = propagate(s.cpu(), ids.cpu(), d2.cpu(), mode, **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def _device_kernels(fn):
+    """Names of the kernels that ``fn()`` launched on the card
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                             # build, warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower()]
+
+
+@pytest.mark.parametrize("mode,most", [("numeric", 1), ("categorical", 1),
+                                       ("top1", 2)])
+def test_propagate_kernel_launches_per_call(cuda, mode, most):
+    """Numeric and categorical are one launch a call; top1 at most two
+    (its prescale on the card, no host sync)."""
+    rng = np.random.default_rng(7)
+    c, n, k = 7000, 100000, 8
+    kw = {"n_classes": 5} if mode == "categorical" else {}
+    s = torch.as_tensor(rng.integers(0, 5, c) if kw else rng.uniform(0, 1, c),
+                        dtype=torch.float32, device=cuda)
+    ids = torch.as_tensor(rng.integers(0, c, (n, k)), dtype=torch.int32,
+                          device=cuda)
+    d2 = torch.as_tensor(np.sort(rng.uniform(0, 9, (n, k)), 1),
+                         dtype=torch.float32, device=cuda)
+    names = _device_kernels(lambda: propagate(s, ids, d2, mode, **kw))
+    assert 1 <= len(names) <= most, names
+
+
+@pytest.mark.parametrize("c", [50, 7000, 20000, 40000])
+def test_propagate_top1_prescale_is_tie_break_prescale(cuda, c):
+    """The top1 prescale computed on the card equals tie_break_prescale bit
+    for bit (read back as -out[0]: row 0's nearest rep scores 0 at distance
+    1); above PAIRWISE_MAX_C the plain version computes it, counted."""
+    rng = np.random.default_rng(c)
+    n, k = 5000, 8
+    scores = np.round(rng.uniform(0, 1, c), 3)
+    scores[0] = 0.0
+    s = torch.as_tensor(scores, dtype=torch.float32, device=cuda)
+    ids = torch.as_tensor(rng.integers(0, c, (n, k)), dtype=torch.int32,
+                          device=cuda)
+    d2 = torch.as_tensor(np.sort(rng.uniform(0, 9, (n, k)), 1),
+                         dtype=torch.float32, device=cuda)
+    ids[0, 0], d2[0, 0] = 0, 1.0
+    plain = propagate.plain_prescales
+    out = propagate(s, ids, d2, "top1")
+    want = tie_break_prescale(s, d2)
+    got = -out[0]
+    assert got.view(torch.int32) == want.view(torch.int32), (got, want)
+    assert propagate.plain_prescales == plain + (
+        c > propagate_ops.PAIRWISE_MAX_C)
 
 
 def _assert_attention_close(got, q, k, v, causal, window, path):

@@ -15,10 +15,22 @@ from repro.kernels.distance_topk.ops import distance_topk as jax_topk  # noqa: E
 from repro.kernels.fpf_update.ops import fpf_update as jax_fpf  # noqa: E402
 from repro.kernels.propagate.ops import propagate as jax_prop  # noqa: E402
 from repro.kernels.propagate.ref import tie_break_prescale as jax_prescale  # noqa: E402
-from repro_torch.kernels.distance_topk.ops import PAD_DIST, distance_topk  # noqa: E402
+from repro_torch.kernels.distance_topk.ops import (  # noqa: E402
+    PAD_DIST,
+    distance_topk,
+    distance_topk_route,
+)
+from repro_torch.kernels.distance_topk.ref import (  # noqa: E402
+    distance_topk_ref,
+    distance_topk_tc_ref,
+    tf32_round,
+)
 from repro_torch.kernels.fpf_update.ops import fpf_update  # noqa: E402
 from repro_torch.kernels.propagate.ops import propagate  # noqa: E402
-from repro_torch.kernels.propagate.ref import tie_break_prescale  # noqa: E402
+from repro_torch.kernels.propagate.ref import (  # noqa: E402
+    tie_break_prescale,
+    tie_break_prescale_pairwise,
+)
 
 pytestmark = pytest.mark.tier1
 
@@ -91,6 +103,121 @@ def test_distance_topk_repless_and_ties():
     dj, ij = distance_topk_jax_xla(x.numpy(), r.numpy(), 4)
     np.testing.assert_array_equal(i.numpy(), ij)
     np.testing.assert_allclose(d.numpy(), dj, rtol=1e-5, atol=1e-5)
+
+
+def test_distance_topk_ref_leaves_the_tf32_setting_alone():
+    """The plain version computes in full float32 without changing the
+    process-wide matmul precision (TF32 on a card) for anyone else."""
+    prev = torch.get_float32_matmul_precision()
+    x = torch.randn(20, 16, generator=torch.Generator().manual_seed(0))
+    try:
+        for setting in ("high", "highest", "medium"):
+            torch.set_float32_matmul_precision(setting)
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            distance_topk_ref(x, x[:5], 3)
+            distance_topk_tc_ref(x, x[:5], 3)
+            assert torch.get_float32_matmul_precision() == setting
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to nearest at 10 mantissa bits, ties away from zero, carries
+    into the exponent, the low 13 bits cleared."""
+    ulp = 2.0 ** -10
+    a = torch.tensor([1.0, 1 + ulp / 2, 1 + 1.5 * ulp, -(1 + ulp / 2),
+                      1 + ulp / 2 - 2.0 ** -23, 2 - ulp / 2, 0.0, -0.0],
+                     dtype=torch.float32)
+    want = [1.0, 1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0, 2.0, 0.0, -0.0]
+    got = tf32_round(a)
+    assert got.tolist() == want
+    assert torch.signbit(got[-1])
+    assert ((got.view(torch.int32) & 0x1FFF) == 0).all()
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("n,c,d,k,dtype", [
+    (200, 90, 32, 8, "float32"), (130, 37, 16, 5, "float32"),
+    (150, 70, 128, 1, "float32"), (97, 64, 24, 8, "bfloat16"),
+    (70, 5, 16, 3, "float16"),
+])
+def test_distance_topk_tc_arithmetic_matches_jax(impl, n, c, d, k, dtype):
+    """The tc route's arithmetic (3xTF32 for float32, one exact pass for
+    16-bit inputs) against the JAX package at its tolerances."""
+    rng = np.random.default_rng(n + c + 1)
+    xj, xt = _pair(rng.normal(size=(n, d)), dtype)
+    rj, rt = _pair(rng.normal(size=(c, d)), dtype)
+    dj, ij = _jax_topk(xj, rj, k, impl)
+    dt, it = distance_topk_tc_ref(xt, rt, k)
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=tol, atol=tol)
+    gap = np.diff(np.asarray(dj), axis=1)
+    clear = np.ones_like(np.asarray(ij), bool)
+    clear[:, 1:] &= gap > tol
+    clear[:, :-1] &= gap > tol
+    np.testing.assert_array_equal(it.numpy()[clear], np.asarray(ij)[clear])
+
+
+def near_duplicates(n: int, c: int, d: int, seed: int = 0):
+    """Records that sit 1e-2 (per dimension) from one of the reps, with an
+    offset that puts |x|^2 near 1,000 (near-duplicate video frames): their
+    distance to their own rep (~0.013) is what the expanded form cancels."""
+    rng = np.random.default_rng(seed)
+    reps = rng.normal(size=(c, d)) + 2.7
+    x = reps[rng.integers(0, c, n)] + 1e-2 * rng.normal(size=(n, d))
+    return x.astype(np.float32), reps.astype(np.float32)
+
+
+def _err_vs_float64(vals, x, r, k):
+    """Largest distance from the float64 top-k distances (direct form)."""
+    x64, r64 = torch.from_numpy(x).double(), torch.from_numpy(r).double()
+    d64 = ((x64[:, None] - r64[None]) ** 2).sum(-1)
+    want = torch.sort(d64, 1).values[:, :k]
+    return float((vals.double() - want).abs().max())
+
+
+def test_distance_topk_tc_arithmetic_near_duplicates():
+    """3xTF32 stays within 2x float32's own error against float64 where
+    records sit near a rep; single-pass TF32 does not (its witness)."""
+    x, r = near_duplicates(2048, 64, 128)
+    assert 900 < float((x.astype(np.float64) ** 2).sum(1).mean()) < 1200
+    xt, rt = torch.from_numpy(x), torch.from_numpy(r)
+    f32 = _err_vs_float64(distance_topk_ref(xt, rt, 8)[0], x, r, 8)
+    tc = _err_vs_float64(distance_topk_tc_ref(xt, rt, 8)[0], x, r, 8)
+    one = _err_vs_float64(distance_topk_tc_ref(xt, rt, 8, passes=1)[0], x,
+                          r, 8)
+    assert 0 < f32 < 1e-2
+    assert tc <= 2 * f32, (tc, f32)
+    assert one > 10 * f32, (one, f32)
+    # the JAX package's float32 agrees with the plain float32 there
+    dj, _ = distance_topk_jax_xla(x, r, 8)
+    assert _err_vs_float64(torch.from_numpy(dj.copy()), x, r, 8) <= 2 * f32
+
+
+@pytest.mark.parametrize("n,d,k,dtype,route", [
+    (1000, 128, 8, torch.float32, "tc"),       # the build and the cracks
+    (1000, 128, 1, torch.float32, "tc"),       # max_intra_cluster_dist
+    (1000, 128, 5, torch.float32, "tc"),       # a crack with 5 new reps
+    (100, 16, 3, torch.float16, "tc"),
+    (100, 64, 8, torch.bfloat16, "tc"),
+    (100, 8, 8, torch.float32, "tc"),
+    (100, 37, 8, torch.float32, "simt"),       # rows of no multiple of 16 B
+    (100, 20, 8, torch.bfloat16, "simt"),
+    (100, 128, 9, torch.float32, "simt"),      # k past the tc lists
+    (100, 128, 32, torch.float32, "simt"),
+    (100, 132, 8, torch.float32, "simt"),      # D past the tc tiles
+])
+def test_distance_topk_route(n, d, k, dtype, route):
+    x = torch.zeros(n, d, dtype=dtype)
+    assert distance_topk_route(x, x[:50], k) == route
+
+
+def test_distance_topk_launch_rejects_an_unknown_route():
+    from repro_torch.kernels.distance_topk.ops import _launch
+    x = torch.zeros(10, 8)
+    with pytest.raises(ValueError, match="route"):
+        _launch(x, x, 2, "wgmma")
 
 
 def distance_topk_jax_xla(x, r, k):
@@ -202,6 +329,31 @@ def test_tie_break_prescale_matches_jax():
         rtol=1e-6)
 
 
+@pytest.mark.parametrize("c,kind", [(1, "any"), (2, "equal"), (50, "cents"),
+                                    (50, "equal"), (700, "uniform"),
+                                    (3000, "uniform"), (3000, "cents")])
+def test_tie_break_prescale_pairwise_is_tie_break_prescale(c, kind):
+    """The card's pairwise way to the top-1 prescale (its plain version)
+    equals tie_break_prescale bit for bit; the JAX package's is the
+    witness, at the tolerance of test_tie_break_prescale_matches_jax."""
+    rng = np.random.default_rng(c)
+    scores = rng.uniform(0, 1, size=c).astype(np.float32)
+    if kind == "cents":
+        scores = np.round(scores, 2).astype(np.float32)
+    elif kind == "equal":
+        scores[:] = 0.25
+    d2 = rng.uniform(0, 4, size=(300, 8)).astype(np.float32)
+    d2[:5, 0] = -1e-3                      # clamped at 0, as on the card
+    st, dt = torch.from_numpy(scores), torch.from_numpy(d2)
+    got = tie_break_prescale_pairwise(st, dt)
+    want = tie_break_prescale(st, dt)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.view(torch.int32) == want.view(torch.int32), (got, want)
+    np.testing.assert_allclose(
+        float(got), float(jax_prescale(jnp.asarray(scores), jnp.asarray(d2))),
+        rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # the kernels' build: one library per source, keyed by its own inputs
 # ---------------------------------------------------------------------------
@@ -230,6 +382,7 @@ def test_each_kernel_library_hashes_its_own_source_and_headers(tmp_path,
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("\n// edited\n")
     again = {n: _build.source_hash(n) for n in names}
-    assert [n for n in names if again[n] != after[n]] == ["flash_attention"]
+    assert [n for n in names if again[n] != after[n]] == ["distance_topk",
+                                                          "flash_attention"]
     assert _build._lib_path("flash_attention").name == \
         f"flash_attention-{again['flash_attention']}.so"
