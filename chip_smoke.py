@@ -29,9 +29,28 @@
 5. lm_serve and lm_decode_window: the ``serve_lm`` path (replay prefill,
    greedy decode) at the same width, batch 4, prompt 32, 16 decode steps;
    16 decode steps with the 4,096-key window full.
+   tasti_t: the paper's TASTI-T build over the same records (the default
+   TastiConfig: 200 pre-training steps, 3,000 FPF-mined training records,
+   400 triplet steps of 256, 7,000 reps; stage seconds, launches by kernel
+   and route, the triplet loss, which must fall), one three-spec session
+   over its index, and one train_embedder and one pretrain_embedder step
+   on the card against the CPU's plain path.
 6. embedder: the transformer embedder (``tasti-embedder``, seeded random
    weights) over the night-street records, attention through the kernel's
    short path.
+7. lm_train: ``make_train_step`` at h2o-danube-3-4b's published widths
+   (seeded bf16 weights, float32 moments, remat per block, plain attention
+   as the JAX package trains through XLA attention), 3 steps at batch 1 x
+   4,096; loss, grad norm, seconds and tokens/s per step, peak device
+   memory; every leaf must move, and the loss of the kernel's (tc) forward
+   must agree with the step-1 loss within the bf16 witness rule.  Before
+   it, step 1 at the same widths, depth cut to 2, against a float32
+   autograd and AdamW recompute (grad norm, first moments, every updated
+   element), which rejects planted faults in the update.
+8. lm_train_resilient: ``python -m repro_torch.launch.train --preset 100m
+   --steps 50 --inject-failure-at 25`` into a temporary checkpoint
+   directory (removed afterwards): one restart, the pipeline state restored,
+   the launcher's own check that the loss fell.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -41,8 +60,10 @@ line.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -878,6 +899,481 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
             "cfg": cfg}
 
 
+# The card's training against the CPU's plain path: one step each of
+# train_embedder and pretrain_embedder from the same weights on the same
+# batch, float32 with TF32 off.  Weights to rtol 1e-5 and atol 1e-5 (a fifth
+# of the first triplet step, lr 1e-3 / 20 warm-up steps, for weights whose
+# gradient lies near Adam's eps); the MLP's last bias has a zero gradient
+# under the triplet loss (it shifts every embedding alike), noise that
+# Adam's normalised step moves by up to lr: held to 2 x lr.
+TRAIN_TOL = {"rtol": 1e-5, "atol": 1e-5}
+SHIFT_BOUND = 2 * 1e-3 / 20
+
+
+def check_training_steps(dev, feats: np.ndarray, triples: np.ndarray,
+                         embed_dim: int) -> dict:
+    from repro_torch.core import baselines, triplet
+    from repro_torch.core.embedder import Embedder, EmbedderConfig
+    ecfg = EmbedderConfig(feature_dim=feats.shape[1], embed_dim=embed_dim)
+    init = Embedder(ecfg, torch.Generator().manual_seed(5)).state_dict()
+    out = []
+    for where in ("cpu", dev):
+        model = Embedder(ecfg)
+        model.load_state_dict(init)
+        model.to(where)
+        _, hist = triplet.train_embedder(model, feats, triples,
+                                         triplet.TripletConfig(steps=1))
+        pre = baselines.pretrain_embedder(feats, ecfg, steps=1, seed=6,
+                                          device=where, encoder_init=init)
+        out.append((hist[0], {k: v.cpu() for k, v in
+                              model.state_dict().items()},
+                    {k: v.cpu() for k, v in pre.state_dict().items()}))
+    (l0, w0, p0), (l1, w1, p1) = out
+    res = {"triplet_loss_cpu": l0, "triplet_loss_card": l1}
+    assert abs(l1 - l0) <= 1e-5 * abs(l0), res
+    for what, a, b in (("train_embedder", w0, w1),
+                       ("pretrain_embedder", p0, p1)):
+        worst = 0.0
+        for k in a:
+            d = float((b[k] - a[k]).abs().max())
+            if what == "train_embedder" and k == "layers.2.bias":
+                assert d <= SHIFT_BOUND, (k, d)
+                res["shift_bias_abs_diff"] = d
+                continue
+            torch.testing.assert_close(b[k], a[k], **TRAIN_TOL)
+            worst = max(worst, float(((b[k] - a[k]).abs()
+                                      / (a[k].abs() + 1e-6)).max()))
+        res[f"{what}_max_rel_diff"] = worst
+    log(f"tasti_t training, card vs CPU plain path (one step each, batch "
+        f"256, float32, TF32 off): triplet loss {l1:.7f} vs {l0:.7f}; "
+        f"weights max rel diff train_embedder "
+        f"{res['train_embedder_max_rel_diff']:.3g}, pretrain_embedder "
+        f"{res['pretrain_embedder_max_rel_diff']:.3g} (tol rtol 1e-5 atol "
+        f"1e-5), last bias {res['shift_bias_abs_diff']:.3g} (<= "
+        f"{SHIFT_BOUND:.3g})")
+    return res
+
+
+def run_tasti_t(dev, wl, n_train: int, n_reps: int, specs, profile,
+                pt_rows) -> dict:
+    """tasti_t: the paper's TASTI-T build (the default TastiConfig:
+    pre-training, FPF-mined training set, triplet training, 7,000 reps)
+    over the workload, then one three-spec session over its index."""
+    from unittest import mock
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.pipeline import TastiConfig, build_tasti
+    from repro_torch.core.session import QuerySession
+    from repro_torch.kernels.distance_topk import ops as topk_ops
+    from repro_torch.kernels.distance_topk.ops import distance_topk
+    from repro_torch.kernels.fpf_update.ops import fpf_update
+    from repro_torch.kernels.propagate import ops as propagate_ops
+    from repro_torch.kernels.propagate.ops import propagate
+
+    cfg = TastiConfig(n_train=n_train, n_reps=n_reps)
+    stage_s, seen = {}, {}
+
+    def timed(names, fn):
+        """``fn`` with its seconds (the card synchronised after it) logged
+        under the next of ``names``; keeps its last call's arguments."""
+        names = iter(names)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_s[next(names)] = time.perf_counter() - t0
+            seen[fn.__name__] = a
+            return out
+
+        return run
+
+    # the build's stages, timed around the functions build_tasti calls
+    stages = [("pretrain_embedder", ["pretrain"]),
+              ("embed_all", ["embed", "embed_trained"]),
+              ("fpf_select", ["mine_fpf"]),
+              ("mine_triplets", ["mine_triplets"]),
+              ("train_embedder", ["train_embedder"])]
+    fpf_update.launches = 0
+    topk_ops.reset_launches()
+    propagate_ops.reset_launches()
+    with contextlib.ExitStack() as patches:
+        for fn, names in stages:
+            patches.enter_context(mock.patch.object(
+                pipeline, fn, timed(names, getattr(pipeline, fn))))
+        patches.enter_context(mock.patch.object(
+            pipeline.TastiIndex, "build",
+            staticmethod(timed(["index"], pipeline.TastiIndex.build))))
+        with Phase("tasti_t", profile) as ph:
+            system = build_tasti(wl, cfg, variant="T", device=dev)
+    build_s = ph.seconds
+    st = dict(system.build_stats, stage_s=stage_s,
+              train_ids=seen["mine_triplets"][0])
+    triples = seen["train_embedder"][2]
+    assert len(triples) == st["n_triples"]
+    build_paths = dict(distance_topk.launches_by_path)
+    fpf_launches = fpf_update.launches
+    losses = st["triplet_losses"]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    log(f"phase tasti_t build: {build_s:.2f} s; stages (s) " + ", ".join(
+        f"{k} {v:.3f}" for k, v in st["stage_s"].items())
+        + f"; fpf_update launches {fpf_launches}, distance_topk launches "
+        f"{distance_topk.launches} {build_paths}; {st['n_triples']} triples "
+        f"from {len(st['train_ids'])} training records; triplet loss first "
+        f"{losses[0]:.4f} last {losses[-1]:.4f} (means of 20: {first:.4f} -> "
+        f"{last:.4f}); cost {vars(system.index.cost)}")
+    assert len(losses) == cfg.triplet.steps and np.isfinite(losses).all()
+    assert last < first, (first, last)
+    assert build_paths["simt"] == 0 and build_paths["tc"] > 0, build_paths
+    assert fpf_launches > 0
+    index = system.index
+    assert np.isfinite(index.topk_d2).all()
+    assert index.topk_ids.shape == (len(wl.features), cfg.k)
+
+    engine = QueryEngine(index, wl, crack=True)
+    assert engine.resident.enabled
+    with Phase("tasti_t_session", None) as ph:
+        out = QuerySession(engine, specs).execute()
+    true_mean = float(wl.counts.mean())
+    agg = out.results[0]
+    log(f"phase tasti_t session: {ph.seconds:.2f} s")
+    for r, pt in zip(out.results, pt_rows):
+        log(f"  {r.kind}: estimate {r.estimate} ci {r.ci_half_width} "
+            f"invocations {r.n_invocations} fresh {r.n_oracle_fresh} cached "
+            f"{r.n_oracle_cached} cracked {r.n_cracked}; PT index, session "
+            f"1: fresh {pt[0]} cached {pt[1]}")
+    assert abs(agg.estimate - true_mean) <= 3 * agg.ci_half_width, \
+        (agg.estimate, agg.ci_half_width, true_mean)
+    crack_paths = {r: n - build_paths[r]
+                   for r, n in distance_topk.launches_by_path.items()}
+    assert crack_paths["simt"] == 0, crack_paths
+    launches = {"fpf_update": fpf_launches,
+                "distance_topk": distance_topk.launches,
+                "propagate": propagate.launches}
+    log(f"launches on the tasti_t path: {launches}; distance_topk by route: "
+        f"build {build_paths}, cracks {crack_paths}")
+    steps = check_training_steps(dev, wl.features[st["train_ids"]],
+                                 triples, cfg.embed_dim)
+    return {"build_s": build_s, "session_s": ph.seconds,
+            "stage_s": st["stage_s"],
+            "n_triples": st["n_triples"], "loss_first": losses[0],
+            "loss_last": losses[-1], "loss_mean_first20": first,
+            "loss_mean_last20": last, "launches": launches,
+            "distance_topk_by_route": {"build": build_paths,
+                                       "cracks": crack_paths},
+            "session": [(r.kind, r.n_oracle_fresh, r.n_oracle_cached)
+                        for r in out.results],
+            "card_vs_cpu": steps}
+
+
+def token_nll(cfg, params, batch, attn_impl: str) -> torch.Tensor:
+    """Per-token cross-entropy (B, S) of the LM over the real vocabulary."""
+    from repro_torch.models import lm
+    logits = lm.lm_logits(params, {"tokens": batch["tokens"]}, cfg,
+                          attn_impl=attn_impl)[..., :cfg.vocab_size].float()
+    return (torch.logsumexp(logits, -1)
+            - logits.gather(-1, batch["targets"][..., None])[..., 0])
+
+
+# The bf16 train step held against float32: step 1 of make_train_step at
+# h2o-danube-3-4b's widths, depth cut to LM_STEP_DEPTH layers (a float32
+# recompute without remat keeps every layer's (32, S, S) scores), against
+# autograd of the same loss on the same weights cast to float32, remat off,
+# and the AdamW formula written out here in float64.  Bounds: bf16
+# rounding moves the gradient by ~1% of its size (LM_GRAD_RTOL, on the
+# norm and on each leaf's first moment, relative L2); Adam's first step is
+# lr x sign(g) (+ decay), so an element's update may differ where that
+# noise flips the sign of a small gradient, but not where the reference's
+# |g| is at least LM_LARGE_G of its leaf's RMS: there at most LM_FLIP_SHARE
+# of the elements lie more than one bf16 ulp from the reference.  Each
+# planted fault (the update's sign, 2 x lr, no gradient, two leaves'
+# gradients swapped) must be rejected (a swap agrees in sign, so within an
+# ulp, on about half the elements).
+LM_STEP_DEPTH = 2
+LM_GRAD_RTOL = 3e-2
+LM_LARGE_G = 0.1
+LM_FLIP_SHARE = 1e-3
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 ulps between two bf16 tensors (int32)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def adamw_step1_reference(p0: torch.Tensor, g: torch.Tensor, gnorm: float,
+                          opt, lr: float) -> torch.Tensor:
+    """The parameter after AdamW's first step from ``p0`` with gradient
+    ``g`` of global norm ``gnorm``, in float64: clip, moments, bias
+    corrections, decoupled decay."""
+    scale = min(1.0, opt.clip_norm / (gnorm + 1e-9))
+    gs = g.double() * scale
+    m_hat = (1 - opt.b1) * gs / (1 - opt.b1)
+    v_hat = (1 - opt.b2) * gs * gs / (1 - opt.b2)
+    p = p0.double()
+    return p - lr * (m_hat / (v_hat.sqrt() + opt.eps) + opt.weight_decay * p)
+
+
+def check_lm_train_step(dev, cfg, opt, batch) -> dict:
+    """make_train_step's first step (bf16 params, float32 moments, remat,
+    in-place chunked AdamW) at full width and depth LM_STEP_DEPTH against
+    the float32 reference above; returns the readings."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import (tree_leaves,
+                                           tree_leaves_with_names, tree_map)
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cut = dataclasses.replace(cfg, n_layers=LM_STEP_DEPTH)
+    f32 = dataclasses.replace(cut, dtype="float32", param_dtype="float32",
+                              remat="none")
+    params = lm.init_model(cut, torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    p0 = [p.detach().clone() for p in tree_leaves(params)]
+    ref_params = tree_map(lambda p: p.detach().float().requires_grad_(True),
+                          params)
+    ref_leaves = tree_leaves(ref_params)
+    with torch.enable_grad():
+        ref_loss, _ = lm.lm_loss(ref_params, batch, f32, attn_impl="plain")
+        g32 = [g.detach() for g in torch.autograd.grad(ref_loss, ref_leaves)]
+    ref_loss = float(ref_loss.detach())
+    del ref_params, ref_leaves
+    ref_norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g32)))
+
+    opt_state = init_opt_state(params, opt)
+    params, opt_state, m = make_train_step(cut, opt, attn_impl="plain")(
+        params, opt_state, batch)
+    lr, gnorm = float(m["lr"]), float(m["grad_norm"])
+    names, got = zip(*tree_leaves_with_names(params))
+    mu = tree_leaves(opt_state["mu"])
+    scale = min(1.0, opt.clip_norm / (ref_norm + 1e-9))
+
+    def outside(i, g, lr_i=lr, sign=1.0, every=False):
+        """Share of leaf i's elements (those of a large reference gradient
+        unless ``every``) more than one bf16 ulp from the reference."""
+        want = adamw_step1_reference(p0[i], g, ref_norm, opt, sign * lr_i)
+        far = bf16_ulps(got[i], want.to(torch.bfloat16)) > 1
+        if not every:
+            a = g32[i].abs()
+            far = far[a >= LM_LARGE_G * a.square().mean().sqrt()]
+        return float(far.double().mean())
+
+    rows = {}
+    for i, name in enumerate(names):
+        m_ref = (1 - opt.b1) * scale * g32[i].double()
+        rows[name] = {
+            "moment_rel_l2": float((mu[i].double() - m_ref).norm()
+                                   / m_ref.norm()),
+            "outside_share": outside(i, g32[i]),
+            "outside_share_all": outside(i, g32[i], every=True),
+            "moved_share": float((got[i] != p0[i]).double().mean())}
+    # planted faults, on the largest leaf of the layers (every element has
+    # a gradient there, unlike the embedding's rows of absent tokens) and on
+    # the first pair of leaves of one shape (their gradients swapped)
+    big = max((i for i, n in enumerate(names) if n.startswith("blocks")),
+              key=lambda i: got[i].numel())
+    pair = next((i, j) for i in range(len(got)) for j in range(i + 1, len(got))
+                if got[i].shape == got[j].shape)
+    faults = {"sign": outside(big, g32[big], sign=-1.0),
+              "2 x lr": outside(big, g32[big], lr_i=2 * lr),
+              "no gradient": outside(big, torch.zeros_like(g32[big])),
+              f"swap {names[pair[0]]}/{names[pair[1]]}": min(
+                  outside(pair[0], g32[pair[1]]),
+                  outside(pair[1], g32[pair[0]]))}
+    worst_moment = max(r["moment_rel_l2"] for r in rows.values())
+    worst_share = max(r["outside_share"] for r in rows.values())
+    worst_all = max(r["outside_share_all"] for r in rows.values())
+    log(f"lm_train step 1 vs float32 reference ({cfg.name} widths, "
+        f"{LM_STEP_DEPTH} layers, S {batch['tokens'].shape[1]}): loss "
+        f"{float(m['loss']):.5f} vs {ref_loss:.5f}; grad norm "
+        f"{gnorm:.5f} vs {ref_norm:.5f}; worst leaf: first moment rel L2 "
+        f"{worst_moment:.4g} (<= {LM_GRAD_RTOL}), share of elements > 1 bf16 "
+        f"ulp from the reference where |g| >= {LM_LARGE_G} RMS "
+        f"{worst_share:.4g} (<= {LM_FLIP_SHARE}), of all elements "
+        f"{worst_all:.4g}; planted faults, share outside: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in faults.items()))
+    for name, r in rows.items():
+        log(f"    {name}: moment rel L2 {r['moment_rel_l2']:.4g}, outside "
+            f"{r['outside_share']:.4g} (all {r['outside_share_all']:.4g}), "
+            f"moved {r['moved_share']:.4f}")
+    assert abs(gnorm - ref_norm) <= LM_GRAD_RTOL * ref_norm, (gnorm, ref_norm)
+    assert worst_moment <= LM_GRAD_RTOL, rows
+    assert worst_share <= LM_FLIP_SHARE, rows
+    assert all(v > LM_FLIP_SHARE for v in faults.values()), faults
+    del params, opt_state, got, mu, p0, g32
+    torch.cuda.empty_cache()
+    return {"depth": LM_STEP_DEPTH, "loss": float(m["loss"]),
+            "loss_f32": ref_loss, "grad_norm": gnorm,
+            "grad_norm_f32": ref_norm, "worst_moment_rel_l2": worst_moment,
+            "worst_outside_share": worst_share,
+            "worst_outside_share_all": worst_all, "planted_faults": faults,
+            "leaves": rows}
+
+
+def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
+    """lm_train: make_train_step at h2o-danube-3-4b's published widths
+    (seeded bf16 weights, float32 moments, remat per block, the plain
+    attention route), ``steps`` steps at batch 1 x ``seq``."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenDataset
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.adamw import OptimizerConfig, init_opt_state
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_config("h2o-danube-3-4b")
+    assert cfg.remat == "full" and cfg.param_dtype == "bfloat16"
+    # warm-up 1: the first step takes the peak lr, so that every bf16 leaf
+    # moves (half an ulp of a norm scale of 1.0 is 2^-9)
+    opt = OptimizerConfig(peak_lr=3e-3, min_lr=3e-4, warmup_steps=1,
+                          total_steps=steps, state_dtype=cfg.opt_state_dtype)
+    ds = TokenDataset(vocab_size=cfg.vocab_size, n_docs=16,
+                      doc_len=seq + 64, seed=0)
+    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in ds.batch(0, i, 1, seq).items()}
+               for i in range(steps)]
+    t0 = time.perf_counter()
+    step_check = check_lm_train_step(dev, cfg, opt, batches[0])
+    log(f"lm_train step-1 check: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    opt_state = init_opt_state(params, opt)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(p.numel() for p in leaves)
+    log(f"lm_train init: {cfg.name}, {n_params / 1e9:.3f}B parameters (bf16, "
+        f"seeded), moments {cfg.opt_state_dtype}, remat {cfg.remat}, "
+        f"{time.perf_counter() - t0:.2f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # the kernel's forward against the trainer's: per-token loss of the
+    # kernel (tc) route and of the plain route beside the witness of bf16
+    # rounding alone (the plain route with keys reversed), as lm_prefill
+    # holds its logits
+    reset_launches()
+    with torch.no_grad():
+        nll_k = token_nll(cfg, params, batches[0], "kernel")
+        k_launches = dict(flash_attention.launches_by_path)
+        nll_p = token_nll(cfg, params, batches[0], "plain")
+        with mock.patch.object(attention, "flash_attention_ref",
+                               plain_attention_keys_reversed):
+            nll_w = token_nll(cfg, params, batches[0], "plain")
+    d_kernel = float((nll_k - nll_p).abs().mean())
+    d_witness = float((nll_w - nll_p).abs().mean())
+    loss_kernel, loss_plain = float(nll_k.mean()), float(nll_p.mean())
+    del nll_k, nll_p, nll_w
+    assert k_launches == {"simt": 0, "tc": cfg.n_layers, "short": 0}, \
+        k_launches
+    samples = [p.detach().reshape(-1)[::max(1, p.numel() // 65536)].clone()
+               for p in leaves]
+    step_fn = make_train_step(cfg, opt, attn_impl="plain")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    with Phase("lm_train", profile) as ph:
+        for i, batch in enumerate(batches):
+            t1 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            rows.append({"step": i + 1, "loss": loss, "grad_norm": gnorm,
+                         "lr": float(m["lr"]), "seconds": dt,
+                         "tokens_s": seq / dt})
+            log(f"  lm_train step {i + 1}: loss {loss:.5f} grad norm "
+                f"{gnorm:.5f} lr {float(m['lr']):.2e} {dt:.3f} s "
+                f"({seq / dt:.1f} tok/s)")
+            assert math.isfinite(loss) and math.isfinite(gnorm), rows[-1]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_launches = flash_attention.launches
+    changed = sum(not torch.equal(p.detach().reshape(-1)[
+        ::max(1, p.numel() // 65536)], s) for p, s in zip(leaves, samples))
+    warm = rows[1:] or rows
+    step_s = sum(r["seconds"] for r in warm) / len(warm)
+    log(f"phase lm_train: {steps} steps x batch 1 x {seq} tokens in "
+        f"{ph.seconds:.3f} s; {step_s:.3f} s a step after the first "
+        f"({seq / step_s:.1f} tok/s); peak device memory {peak:.2f} GiB; "
+        f"{changed} of {len(leaves)} leaves changed; flash launches in the "
+        f"steps {train_launches} (plain attention); step-1 loss "
+        f"{rows[0]['loss']:.5f}, plain forward {loss_plain:.5f}, kernel "
+        f"(tc) forward {loss_kernel:.5f}: mean |d token loss| kernel vs plain "
+        f"{d_kernel:.4g}, witness (keys reversed) vs plain {d_witness:.4g}")
+    assert changed == len(leaves), (changed, len(leaves))
+    assert train_launches == 0
+    assert d_kernel <= WITNESS_RATIO * d_witness, (d_kernel, d_witness)
+    assert abs(loss_kernel - rows[0]["loss"]) <= \
+        abs(loss_plain - rows[0]["loss"]) + WITNESS_RATIO * d_witness, \
+        (loss_kernel, loss_plain, rows[0]["loss"], d_witness)
+    del params, opt_state, leaves, samples, step_fn
+    torch.cuda.empty_cache()
+    return {"model": cfg.name, "params": n_params, "batch": 1, "seq": seq,
+            "steps": rows, "seconds_per_step": step_s,
+            "tokens_s": seq / step_s, "peak_gib": peak,
+            "loss_check": {"kernel": loss_kernel, "plain": loss_plain,
+                           "step1": rows[0]["loss"],
+                           "mean_abs_kernel_vs_plain": d_kernel,
+                           "mean_abs_witness_vs_plain": d_witness,
+                           "kernel_launches": k_launches},
+            "step1_vs_float32": step_check}
+
+
+def run_lm_train_resilient(steps: int = 50, fail_at: int = 25) -> dict:
+    """lm_train_resilient: ``repro_torch.launch.train`` (preset 100m) in a
+    child process with a failure injected, into a temporary checkpoint
+    directory that is removed afterwards."""
+    import shutil
+    import tempfile
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--preset",
+             "100m", "--steps", str(steps), "--inject-failure-at",
+             str(fail_at), "--ckpt-dir", ckpt_dir],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+            capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            log(f"  train: {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+        assert proc.returncode == 0, proc.returncode
+        done = re.match(r"\[train\] done: (\d+) steps in \d+s, restarts=(\d+)"
+                        r", first-loss=([\d.]+) last-loss=([\d.]+)", lines[-1])
+        assert done and int(done[1]) == steps and int(done[2]) == 1, lines[-1]
+        # the pipeline state rides in the checkpoint: its offset is the step
+        last = max(int(p.name[5:]) for p in pathlib.Path(ckpt_dir).glob(
+            "step_*"))
+        d = pathlib.Path(ckpt_dir) / f"step_{last:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        with np.load(d / "arrays.npz") as arrays:
+            offset = int(arrays[f"a{manifest['names'].index('2/1')}"])
+        log(f"phase lm_train_resilient: {seconds:.2f} s, {done[1]} steps, "
+            f"restarts {done[2]}, loss {done[3]} -> {done[4]}; checkpoint "
+            f"step {last}: next_step {manifest['extra']['next_step']}, "
+            f"pipeline offset {offset}")
+        assert offset == manifest["extra"]["next_step"] == last
+        return {"seconds": seconds, "steps": int(done[1]),
+                "restarts": int(done[2]), "loss_first": float(done[3]),
+                "loss_last": float(done[4]), "checkpoint_step": last,
+                "pipeline_offset": offset}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
@@ -889,6 +1385,9 @@ def main(argv=None) -> None:
     ap.add_argument("--compare-len", type=int, default=8192,
                     help="prompt length of the kernel-vs-plain LM comparison "
                          "(above the 4,096 window by default)")
+    ap.add_argument("--n-train", type=int, default=3000,
+                    help="training records of the tasti_t build (the "
+                         "paper's 3,000)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace build_tasti, the first session, lm_prefill, "
                          "lm_serve, lm_decode_window and the embedder with "
@@ -1027,6 +1526,9 @@ def main(argv=None) -> None:
     for run in (1, 2):
         with Phase(f"session{run}", args.profile if run == 1 else None) as ph:
             out = QuerySession(engine, specs).execute()
+        if run == 1:
+            pt_rows = [(r.n_oracle_fresh, r.n_oracle_cached)
+                       for r in out.results]
         log(f"phase session run {run}: {ph.seconds:.2f} s")
         for r in out.results:
             log(f"  {r.kind}: estimate {r.estimate} ci {r.ci_half_width} "
@@ -1061,6 +1563,13 @@ def main(argv=None) -> None:
     assert all(v > 0 for v in launches.values()), launches
     assert engine.stats["proxy_device_computes"] > 0, engine.stats
     del engine, system, index
+    torch.cuda.empty_cache()
+
+    tasti_t = run_tasti_t(dev, wl, args.n_train, args.reps, specs,
+                          args.profile, pt_rows)
+    for name, n in tasti_t["launches"].items():
+        launches[name] += n
+    topk_paths["tasti_t"] = tasti_t.pop("distance_topk_by_route")
     torch.cuda.empty_cache()
 
     lm_out = run_lm(dev, args.prefill_len, args.compare_len, args.profile)
@@ -1099,6 +1608,11 @@ def main(argv=None) -> None:
                                    + lm_out["serve"]["launches"]
                                    + lm_out["decode_window"]["launches"]
                                    + emb_launches)
+    del model, emb, plain
+    torch.cuda.empty_cache()
+
+    lm_train = run_lm_train(dev, 4096, 3, args.profile)
+    resilient = run_lm_train_resilient()
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
@@ -1149,6 +1663,9 @@ def main(argv=None) -> None:
                         "replaces": sources[name],
                         "launches": launches[name], **{
                             k: v for k, v in res.items() if k != "name"}})
+    log("training paths: " + json.dumps({
+        "tasti_t": tasti_t, "lm_train": lm_train,
+        "lm_train_resilient": resilient}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,17 @@
 """End-to-end TASTI pipelines over a workload (the prototype system of §6).
 
-``build_tasti(workload, variant="PT", embed_params=...)`` embeds every
-record with the given embedder weights, FPF-selects cluster
-representatives (+random mix), annotates them and caches top-k distances.
-The returned ``TastiSystem`` exposes the paper's query API: proxy scores per
-query-specific ``Score`` function, with propagation mode per score type.
+``build_tasti(workload, variant=...)``:
+  1. FPF-mine a training set over pre-trained embeddings (budget target-DNN
+     annotations),
+  2. train the embedding DNN with the induced-schema triplet loss (TASTI-T) or
+     keep the pre-trained embedder (TASTI-PT),
+  3. embed all records, FPF-select cluster representatives (+random mix),
+     annotate them, cache top-k distances.
 
-The branches that train — ``variant="T"`` (triplet-trained embedder) and
-``embed_params=None`` (pre-training) — wait for the training slice of the
-port and raise ``NotImplementedError``.
+Returned ``TastiSystem`` exposes the paper's query API: proxy scores per
+query-specific ``Score`` function, with propagation mode per score type.
+Training runs on the build's device with the plain attention route; the
+embedding passes, FPF and the index go through the kernels there.
 """
 from __future__ import annotations
 
@@ -19,11 +22,14 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import pretrain_embedder
 from repro_torch.core.embedder import Embedder, EmbedderConfig, embed_all
 from repro_torch.core.engine import QueryEngine, QueryResult, QuerySpec
+from repro_torch.core.fpf import fpf_select
 from repro_torch.core.index import IndexCost, TastiIndex
 from repro_torch.core.session import QuerySession, SessionResult
-from repro_torch.core.triplet import TripletConfig
+from repro_torch.core.triplet import (TripletConfig, mine_triplets,
+                                      train_embedder)
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -48,12 +54,16 @@ class TastiSystem:
     caches (memoized propagation, crack invalidation).  ``oracle`` stays
     deliberately cache-free: its callers count every invocation for benchmark
     comparability — use ``execute`` to get the shared label cache.
+
+    ``build_stats`` (the port's addition) holds, for TASTI-T, the number of
+    triples and the triplet loss history.
     """
     index: TastiIndex
     workload: Any
     embed_params: Any
     ecfg: EmbedderConfig
     variant: str
+    build_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
     _engine: Optional[QueryEngine] = dataclasses.field(default=None,
                                                        repr=False)
 
@@ -120,20 +130,12 @@ def build_tasti(workload, cfg: Optional[TastiConfig] = None,
                 embed_params: Optional[Dict[str, torch.Tensor]] = None,
                 device: DeviceLike = None,
                 embedder: Optional[EmbedderConfig] = None) -> TastiSystem:
-    """variant: "PT" (pre-trained only) with ``embed_params``, an
-    :class:`~repro_torch.core.embedder.Embedder` state dict (see
-    :func:`~repro_torch.core.embedder.params_from_jax`).  ``embedder``
-    picks the embedder, e.g. ``EmbedderConfig(backbone="tasti-embedder")``;
-    by default the MLP at the workload's feature width."""
-    if variant == "T":
-        raise NotImplementedError(
-            "variant='T' trains the embedder with the triplet loss; it waits "
-            "for the training slice of the port (use variant='PT' with "
-            "embed_params)")
-    if embed_params is None:
-        raise NotImplementedError(
-            "embed_params=None pre-trains the embedder; it waits for the "
-            "training slice of the port (pass embedder weights)")
+    """variant: "T" (triplet-trained) | "PT" (pre-trained only).
+    ``embed_params``, an :class:`~repro_torch.core.embedder.Embedder` state
+    dict (see :func:`~repro_torch.core.embedder.params_from_jax`), skips
+    pre-training.  ``embedder`` picks the embedder, e.g.
+    ``EmbedderConfig(backbone="tasti-embedder")``; by default the MLP at the
+    workload's feature width."""
     dev = resolve_device(device)
     cfg = cfg or TastiConfig()
     cost = IndexCost()
@@ -143,15 +145,43 @@ def build_tasti(workload, cfg: Optional[TastiConfig] = None,
     if ecfg.feature_dim != feats.shape[1] or ecfg.embed_dim != cfg.embed_dim:
         raise ValueError(f"embedder {ecfg} does not map the workload's "
                          f"{feats.shape[1]} features to {cfg.embed_dim}")
-    model = Embedder(ecfg)
-    model.load_state_dict(embed_params)
-    model.to(dev)
+    stats: Dict[str, Any] = {}
 
-    # the JAX package embeds twice on this branch (the pre-trained pass and
-    # the final pass, with the same weights); the cost model counts both,
-    # the port computes once
+    # 1) pre-trained embeddings (generic self-supervision; no schema access)
+    if embed_params is None:
+        model = pretrain_embedder(feats, ecfg, steps=cfg.pretrain_steps,
+                                  seed=cfg.seed, device=dev)
+    else:
+        model = Embedder(ecfg)
+        model.load_state_dict(embed_params)
+        model.to(dev)
+    cost.embed_records += len(feats)
     embeddings = embed_all(model, feats)
-    cost.embed_records += 2 * len(feats)
+
+    if variant == "T":
+        # 2) FPF-mine the training set, annotate with the target DNN
+        if use_fpf_mining:
+            train_ids = fpf_select(embeddings, cfg.n_train,
+                                   random_fraction=cfg.random_fraction,
+                                   seed=cfg.seed, device=dev)
+        else:
+            rng = np.random.default_rng(cfg.seed)
+            train_ids = rng.choice(len(feats),
+                                   size=min(cfg.n_train, len(feats)),
+                                   replace=False)
+        cost.target_invocations += len(train_ids)  # annotations for closeness
+        rng = np.random.default_rng(cfg.seed + 1)
+        triples = mine_triplets(train_ids, workload.is_close, rng,
+                                max_triplets=cfg.triplet.max_triplets)
+        _, history = train_embedder(model, feats[train_ids], triples,
+                                    cfg.triplet)
+        cost.training_steps += cfg.triplet.steps
+        stats.update(n_triples=len(triples), triplet_losses=history)
+        # 3) embed all records with the trained embedder
+        embeddings = embed_all(model, feats)
+    # the PT branch keeps the pre-trained embeddings: the JAX package embeds
+    # a second time with the same weights; the cost model counts both passes
+    cost.embed_records += len(feats)
 
     def annotate(ids):
         return workload.target_dnn_batch(np.asarray(ids, np.int64))
@@ -160,5 +190,8 @@ def build_tasti(workload, cfg: Optional[TastiConfig] = None,
         embeddings, cfg.n_reps, annotate, k=cfg.k,
         random_fraction=cfg.random_fraction, seed=cfg.seed, cost=cost,
         rep_selection="fpf" if use_fpf_clustering else "random", device=dev)
-    return TastiSystem(index=index, workload=workload,
-                       embed_params=embed_params, ecfg=ecfg, variant=variant)
+    params = (embed_params if embed_params is not None and variant != "T"
+              else {k: v.detach().cpu() for k, v in
+                    model.state_dict().items()})
+    return TastiSystem(index=index, workload=workload, embed_params=params,
+                       ecfg=ecfg, variant=variant, build_stats=stats)

@@ -147,6 +147,21 @@ def check(name: str, status: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({status})")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and a tensor input requires grad: a kernel's
+    output (written through ctypes into ``torch.empty``) has no
+    ``grad_fn``, so launching would cut the gradient without a word.  No
+    kernel of the port has a backward; training takes the plain route."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward and an input requires "
+            f"grad: call it under torch.no_grad(), or take the plain "
+            f"route (attn_impl='plain', or the {name} ref.py) to train "
+            f"through it")
+
+
 def aligned16(t):
     """t, contiguous, at a 16-byte aligned address (TMA and 16-byte loads
     need one): a copy only where the view is not."""

@@ -55,6 +55,7 @@ def distance_topk_route(x: torch.Tensor, r: torch.Tensor, k: int) -> str:
 def _launch(x: torch.Tensor, r: torch.Tensor, k: int, route: str):
     """The kernel on ``route`` for 1 <= k <= C (the card's tests and
     chip_smoke.py time both routes at one shape through it)."""
+    _build.refuse_grad("distance_topk", x, r)
     if route not in ROUTES:
         raise ValueError(f"unknown distance_topk route {route!r}")
     if x.dtype not in _DTYPES or r.dtype != x.dtype:

@@ -66,6 +66,7 @@ def flash_route(q: torch.Tensor, k: torch.Tensor) -> str:
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: int) -> torch.Tensor:
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32/bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "

@@ -15,6 +15,7 @@ MAX_D = 12288
 
 
 def _launch(x: torch.Tensor, rep: torch.Tensor, min_d2: torch.Tensor):
+    _build.refuse_grad("fpf_update", x, rep, min_d2)
     if x.dtype not in _DTYPES or rep.dtype != x.dtype:
         raise TypeError(f"fpf_update kernel takes float32/float16/bfloat16 x "
                         f"and rep of one dtype, got {x.dtype} and {rep.dtype}")

@@ -25,6 +25,7 @@ _THREADS = 256   # csrc/propagate.cu's THREADS
 
 
 def _launch(rep_scores, topk_ids, topk_d2, mode, n_classes, clip01, eps):
+    _build.refuse_grad("propagate", rep_scores, topk_ids, topk_d2)
     n, k = topk_ids.shape
     if k == 0 or topk_d2.shape != (n, k) or rep_scores.ndim != 1:
         raise ValueError(f"shapes {tuple(rep_scores.shape)}, "

@@ -10,15 +10,15 @@ executing specs one-by-one (shared label cache only); with ``--crack``,
 every fresh annotation is folded back into the index either way:
 
     PYTHONPATH=src python -m repro_torch.launch.query \\
-        --workload night-street --n-frames 3000 --index /path/to/index \\
+        --workload night-street --n-frames 3000 --quick \\
         --spec '{"kind": "aggregation", "score": "score_count", "err": 0.05}' \\
         --spec '{"kind": "limit", "score": "score_rare", "k_results": 5}' \\
         --session-budget 2000 --oracle-batch 64 --crack
 
-Point ``--index`` at a saved index (saved by either package: the format is
-shared).  Building in-process trains the embedder, which waits for the
-training slice of the port, so omitting ``--index`` raises
-``NotImplementedError``.  ``--device`` picks where the index lives and the
+Point ``--index`` at a saved index (saved by either package's
+``launch.build_index``: the format is shared) to skip construction;
+otherwise a TASTI index is built in-process first (``--quick``: tiny
+budgets).  ``--device`` picks where the index is built and lives and the
 kernels run (CUDA by default; ``cpu`` runs the plain PyTorch versions).
 """
 from __future__ import annotations

@@ -30,12 +30,56 @@ class ParamSpec:
 
 
 def tree_map(fn: Callable, tree: PyTree) -> PyTree:
-    """``fn`` over the leaves of a tree of dicts and tuples."""
+    """``fn`` over the leaves of a tree of dicts, tuples and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v) for v in tree)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves of a tree of dicts, tuples and lists in the JAX package's
+    flattening order: dict keys sorted, sequences in order, ``None`` no
+    leaf.  A list of tensors is its own leaves, so the same code serves a
+    module's ``parameters()`` and a parameter tree."""
+    return [leaf for _, leaf in tree_leaves_with_names(tree)]
+
+
+def tree_leaves_with_names(tree: PyTree, prefix: str = "") -> list:
+    """``(name, leaf)`` pairs in :func:`tree_leaves` order, each name the
+    keys and indices of the leaf's path joined by ``/`` (``"blocks/0/wq"``),
+    as ``repro.checkpoint.checkpointer`` names them."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out.extend(tree_leaves_with_names(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def tree_unflatten_like(tree: PyTree, leaves: list) -> PyTree:
+    """A tree of ``tree``'s layout holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(tree)
 
 
 def init_params(specs: PyTree, generator: Optional[torch.Generator] = None,
@@ -81,6 +125,20 @@ def take_layer(params: PyTree, i: int) -> PyTree:
     return tree_map(lambda a: a[i], params)
 
 
+def unstack_layers(params: PyTree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, one tree of views each,
+    from one ``unbind`` per leaf: under autograd each leaf's gradient is
+    then stacked once, not summed from ``n`` full-size zero-filled slices
+    as ``n`` calls of :func:`take_layer` would give it."""
+    if isinstance(params, dict):
+        parts = {k: unstack_layers(v, n) for k, v in params.items()}
+        return [{k: parts[k][i] for k in params} for i in range(n)]
+    if isinstance(params, tuple):
+        parts = [unstack_layers(v, n) for v in params]
+        return [tuple(p[i] for p in parts) for i in range(n)]
+    return list(params.unbind(0))
+
+
 def _to_tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16 from JAX
@@ -108,8 +166,7 @@ class ParamTree(nn.Module):
         for k, v in items:
             self._keys.append(k)
             if isinstance(v, torch.Tensor):
-                self.register_parameter(str(k), nn.Parameter(
-                    v, requires_grad=False))
+                self.register_parameter(str(k), nn.Parameter(v))
             else:
                 self.add_module(str(k), ParamTree(v))
 

@@ -6,24 +6,30 @@ Parameters have the JAX package's layout: per-position trees stacked over
 the port runs on one device.  Vision inputs (qwen2-vl, M-RoPE) and the
 encoder-decoder stack (seamless) are not ported yet (ROADMAP A3) and raise.
 
-All entry points are inference-only: call them under ``torch.no_grad()``
-(or ``torch.inference_mode()``) when the parameters require grad.
+``lm_loss`` trains: with ``cfg.remat == "full"`` each block is
+rematerialised in the backward pass (``torch.utils.checkpoint``, the JAX
+package's ``jax.checkpoint``).  Its attention takes the plain route unless
+asked otherwise, as the JAX package trains through XLA attention: no kernel
+of the port has a backward, and a kernel wrapper refuses an input that
+requires grad.  The serving entry points run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, rope as rope_lib
 from repro_torch.models.common import (DTYPES, ParamSpec, PyTree,
                                        init_params, params_from_jax, rmsnorm,
-                                       rmsnorm_specs, stack_specs, take_layer)
+                                       rmsnorm_specs, stack_specs, take_layer,
+                                       unstack_layers)
 
 __all__ = ["model_specs", "init_model", "params_from_jax", "forward_hidden",
-           "lm_logits", "init_cache", "decode_step", "prefill"]
+           "lm_loss", "lm_logits", "init_cache", "decode_step", "prefill"]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -70,8 +76,30 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # Pieces
 # ---------------------------------------------------------------------------
 
+class _EmbedLookup(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums each token's contributions in
+    float32 and casts the table's gradient once.  Indexing's own backward
+    (``index_put_`` with accumulate) sums in the table's dtype: in bfloat16
+    a frequent token's running sum stalls once it outgrows each addend."""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (tokens,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                          device=grad.device)
+        acc.index_add_(0, tokens.reshape(-1),
+                       grad.reshape(-1, ctx.table_shape[-1]).float())
+        return acc.to(ctx.table_dtype), None
+
+
 def _embed_tokens(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+    return _EmbedLookup.apply(params["embed"], tokens)
 
 
 def _angles_for(cfg: ModelConfig, seq: int, device,
@@ -86,9 +114,14 @@ def _angles_for(cfg: ModelConfig, seq: int, device,
 
 def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
                 causal: bool, attn_impl: str = "kernel") -> torch.Tensor:
-    for i in range(cfg.n_repeats):
-        h = blocks.block_fwd(take_layer(params["blocks"], i), h, cfg, angles,
-                             causal, attn_impl=attn_impl)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for layer in unstack_layers(params["blocks"], cfg.n_repeats):
+        if remat:
+            h = checkpoint(blocks.block_fwd, layer, h, cfg, angles, causal,
+                           attn_impl=attn_impl, use_reentrant=False)
+        else:
+            h = blocks.block_fwd(layer, h, cfg, angles, causal,
+                                 attn_impl=attn_impl)
     return h
 
 
@@ -116,6 +149,29 @@ def _unembed(params: PyTree, h: torch.Tensor, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"].t())
     return torch.matmul(h, params["unembed"])
+
+
+def lm_loss(params: PyTree, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, attn_impl: str = "plain"):
+    """Cross-entropy over the real vocabulary (padded columns masked), mean
+    over the tokens whose target is >= 0.  batch: tokens, targets (B, S).
+    Returns (loss + aux_loss, {"ce_loss", "aux_loss", "tokens"})."""
+    h, aux = forward_hidden(params, batch, cfg, attn_impl=attn_impl)
+    logits = _unembed(params, h, cfg).float()
+    if cfg.padded_vocab > cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    targets = batch["targets"]
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1,
+                              targets.clamp_min(0)[..., None].long())[..., 0]
+    token_mask = (targets >= 0).float()
+    nll = (lse - true_logit) * token_mask
+    n_tokens = torch.sum(token_mask)
+    loss = torch.sum(nll) / torch.clamp_min(n_tokens, 1.0)
+    metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n_tokens}
+    return loss + aux, metrics
 
 
 def lm_logits(params: PyTree, batch: Dict[str, torch.Tensor],

@@ -1,1 +1,1 @@
-"""Serving steps of the port (the training step waits for ROADMAP A1)."""
+"""Training and serving steps of the port."""

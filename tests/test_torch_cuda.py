@@ -294,3 +294,83 @@ def test_flash_attention_kernel_rejects_what_it_cannot_take(cuda):
     half = q[..., :64].half()
     with pytest.raises(TypeError, match="float32/bfloat16"):
         flash_attention(half, half, half)
+
+
+# ---------------------------------------------------------------------------
+# training: no kernel cuts a gradient; the card trains as the CPU does
+# ---------------------------------------------------------------------------
+
+def _kernel_calls(dev):
+    x = torch.randn(64, 16, device=dev)
+    ids = torch.zeros(64, 4, dtype=torch.int32, device=dev)
+    q = torch.randn(1, 8, 2, 64, device=dev)
+    return {
+        "distance_topk": (lambda t: distance_topk(t, x[:8], 4), x),
+        "fpf_update": (lambda t: fpf_update(t, x[0], torch.full(
+            (64,), float("inf"), device=dev)), x),
+        "propagate": (lambda t: propagate(t, ids, torch.ones(64, 4,
+                                                             device=dev),
+                                          "numeric"), torch.ones(8, device=dev)),
+        "flash_attention": (lambda t: flash_attention(t, q, q), q),
+    }
+
+
+@pytest.mark.parametrize("name", ["distance_topk", "fpf_update", "propagate",
+                                  "flash_attention"])
+def test_kernel_refuses_an_input_that_requires_grad(cuda, name):
+    """A kernel's output has no grad_fn: under grad mode an input that
+    requires grad raises instead of cutting the gradient; under no_grad,
+    or with no such input, the kernel launches."""
+    call, arg = _kernel_calls(cuda)[name]
+    with pytest.raises(RuntimeError, match="no backward.*plain route"):
+        call(arg.clone().requires_grad_(True))
+    with torch.no_grad():
+        call(arg.clone().requires_grad_(True))
+    call(arg)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("backbone", ["mlp", "tasti-embedder"])
+def test_train_embedder_step_on_the_card_matches_the_cpu(cuda, backbone):
+    """One train_embedder step and one pretrain_embedder step from the same
+    weights on the same batch: the card (float32, TF32 off) against the
+    CPU's plain path, weights to rtol 1e-5 with atol 1e-5, a fifth of the
+    first triplet step (lr 1e-3 / 20 warm-up steps), for the few weights
+    whose gradient lies near Adam's eps.  The MLP's last bias has a zero
+    gradient under the triplet loss (it shifts every embedding alike):
+    noise that Adam's normalised step moves by up to lr, so it is held to
+    2 x lr."""
+    from repro_torch.core import baselines, triplet
+    from repro_torch.core.embedder import Embedder, EmbedderConfig
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(0)
+        feats = rng.normal(size=(200, 64)).astype(np.float32)
+        triples = rng.integers(0, 200, size=(500, 3)).astype(np.int32)
+        cfg = EmbedderConfig(feature_dim=64, embed_dim=32, backbone=backbone)
+        init = Embedder(cfg, torch.Generator().manual_seed(1)).state_dict()
+        out = {}
+        for dev in ("cpu", cuda):
+            model = Embedder(cfg)
+            model.load_state_dict(init)
+            model.to(dev)
+            _, hist = triplet.train_embedder(
+                model, feats, triples, triplet.TripletConfig(steps=1,
+                                                             batch=64))
+            pre = baselines.pretrain_embedder(
+                feats, cfg, steps=1, seed=2, device=dev, encoder_init=init)
+            out[str(dev)] = (hist, {k: v.cpu() for k, v in
+                                    model.state_dict().items()},
+                             {k: v.cpu() for k, v in
+                              pre.state_dict().items()})
+        (h0, w0, p0), (h1, w1, p1) = out.values()
+        assert h1 == pytest.approx(h0, rel=1e-5)
+        for a, b in ((w0, w1), (p0, p1)):
+            for k in a:
+                if a is w0 and k == "layers.2.bias":
+                    assert float((b[k] - a[k]).abs().max()) <= 2 * 1e-3 / 20
+                    continue
+                torch.testing.assert_close(b[k], a[k], rtol=1e-5, atol=1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

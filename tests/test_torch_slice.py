@@ -35,7 +35,11 @@ from repro_torch.core.fpf import fpf_select  # noqa: E402
 from repro_torch.core.index import TastiIndex  # noqa: E402
 from repro_torch.core.pipeline import TastiConfig, build_tasti  # noqa: E402
 from repro_torch.core.session import QuerySession  # noqa: E402
+from repro_torch.core.baselines import (pretrain_embedder,  # noqa: E402
+                                        train_query_proxy)
+from repro_torch.core.embedder import EmbedderConfig  # noqa: E402
 from repro_torch.launch import query as pt_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 
 pytestmark = pytest.mark.tier1
 
@@ -159,9 +163,12 @@ def test_whole_slice_build_then_query_cli(tmp_path, capsys, monkeypatch):
     want = _cli_doc(jax_cli.main, argv, capsys)
     got = _cli_doc(pt_cli.main, argv + ["--device", "cpu"], capsys)
     assert got == want
-    with pytest.raises(NotImplementedError, match="training slice"):
-        pt_cli.main(argv[:4] + ["--variant", "PT", "--device", "cpu",
-                                "--spec", json.dumps(SPECS[0])])
+    # without --index the port builds in-process (pre-training, PT)
+    doc = _cli_doc(pt_cli.main, argv[:4] + [
+        "--variant", "PT", "--n-reps", "90", "--k", "4", "--device", "cpu",
+        "--spec", json.dumps(SPECS[0])], capsys)
+    assert doc["records"] == N and doc["reps"] == 90
+    assert doc["results"][0]["estimate"] is not None
 
 
 _NO_JAX = """
@@ -199,6 +206,23 @@ s = build_tasti(wl, TastiConfig(n_reps=30, k=4), variant="PT",
                 embed_params=Embedder(tcfg).state_dict(), device="cpu",
                 embedder=tcfg)
 assert s.index.embeddings.shape == (300, 128)
+# the training slice: TASTI-T with pre-training, the LM train step and
+# its fault-tolerant launcher with checkpoints and the data pipeline
+import tempfile
+import repro_torch.launch.build_index
+from repro_torch.core.baselines import train_query_proxy
+from repro_torch.core.triplet import TripletConfig
+from repro_torch.launch import train
+s = build_tasti(wl, TastiConfig(n_train=40, n_reps=30, k=4, pretrain_steps=3,
+                                triplet=TripletConfig(steps=3, batch=16)),
+                variant="T", device="cpu")
+assert s.build_stats["n_triples"] > 0
+assert train_query_proxy(wl.features, np.arange(50), wl.counts[:50],
+                         device="cpu").shape == (300,)
+with tempfile.TemporaryDirectory() as d:
+    train.main(["--preset", "ci", "--steps", "6", "--ckpt-every", "3",
+                "--inject-failure-at", "4", "--ckpt-dir", d,
+                "--device", "cpu"])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -232,8 +256,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(saved,
         "w0": np.zeros((64, 8)), "b0": np.zeros(8)}).items()}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_tasti(pwl, variant="PT", embed_params=params)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_tasti(pwl, variant="T", device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_tasti(pwl, variant="PT", device="cpu")
+    # the training branches: TASTI-T, pre-training, the proxy, the LM
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_tasti(pwl, variant="T")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_tasti(pwl, variant="PT")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pretrain_embedder(x, EmbedderConfig(), steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_query_proxy(x, np.arange(5), np.ones(5))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--steps", "1"])
     assert device_mod.resolve_device("cpu").type == "cpu"
