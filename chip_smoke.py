@@ -21,6 +21,13 @@
    serves a three-query session twice through a cracking ``QueryEngine``
    with resident scoring; every distance_topk launch of the build and of
    the cracks must take the tc route.
+   serve: the same index saved and mounted with its label store in a
+   ``QueryServer``: 8 x 4 concurrent ``QueryClient`` requests of the three
+   kinds, a Poisson open loop (``OpenLoopGenerator``: p50/p90/p99, fresh
+   and cached calls), a warm restart from the saved files that must cost 0
+   fresh calls, and one session through two forked process replicas
+   against two thread replicas; propagations must run on the card
+   (resident computes above fallbacks) and every crack take the tc route.
 4. lm_prefill: h2o-danube-3-4b at its published widths (seeded random bf16
    weights) through ``make_prefill_step`` on one 32,768-token prompt, every
    attention layer through the ``flash_attention`` kernel's tc path; the
@@ -125,7 +132,12 @@ def device_ms(fn, iters: int) -> dict:
 def own_time(fn, iters: int, main: str) -> dict:
     """The kernels' own device time per call (all of them, and the one
     whose name holds ``main``) and the kernels launched per call."""
-    ms = device_ms(fn, iters)
+    for attempt in range(3):
+        ms = device_ms(fn, iters)
+        if ms:
+            break
+        log(f"torch.profiler recorded no kernel of {main} (attempt "
+            f"{attempt + 1} of 3)")
     assert ms, "torch.profiler recorded no kernel"
     return {"device_ms": sum(ms.values()),
             "main_device_ms": sum(v for n, v in ms.items() if main in n),
@@ -954,6 +966,276 @@ def check_training_steps(dev, feats: np.ndarray, triples: np.ndarray,
     return res
 
 
+# the serve phase's open loop: a Poisson rate (requests/s) the server keeps
+# up with at 1M frames, for long enough to read p99 off ~30 requests
+SERVE_RATE = 2.0
+SERVE_SECONDS = 15.0
+
+
+def serve_specs(rng: np.random.Generator) -> list:
+    """One request of the serve phase: a single spec of one of the tasti
+    phase's three kinds, its score and seed drawn from ``rng``."""
+    kind = rng.choice(["aggregation", "selection", "limit"], p=[0.5, 0.3,
+                                                               0.2])
+    seed = int(rng.integers(0, 4))
+    if kind == "aggregation":
+        return [{"kind": "aggregation", "seed": seed,
+                 "score": str(rng.choice(["score_count",
+                                          "score_has_object"])),
+                 "err": float(rng.choice([0.05, 0.1]))}]
+    if kind == "selection":
+        return [{"kind": "selection", "score": "score_has_object",
+                 "seed": seed, "budget": int(rng.choice([200, 500]))}]
+    return [{"kind": "limit", "score": str(rng.choice(["score_rare",
+                                                       "score_has_object"])),
+             "seed": seed, "k_results": 5}]
+
+
+def run_serve(dev, wl, index, rate: float, seconds: float, threads: int = 8,
+              per_thread: int = 4) -> dict:
+    """serve: the query server over the tasti phase's index and workload.
+
+    1. The index saved to a temporary stem and mounted, with its label
+       store (``LabelStore.for_index``), in a ``QueryServer`` on
+       127.0.0.1:0 (cracking on, the default admission window).
+    2. ``threads`` x ``per_thread`` concurrent ``QueryClient`` requests.
+    3. An ``OpenLoopGenerator`` at a Poisson ``rate`` for ``seconds``.
+    4. Every request of step 2 once more, one at a time and without
+       cracking, so that the index no longer moves; shutdown (the store
+       saved), the index saved to the same stem; a second server over
+       ``TastiIndex.load(..., device="cuda")`` and its store repeats them:
+       0 fresh calls, the same rows.
+    5. One session through an engine with two forked process replicas
+       (behind a server: the pool forks from a request thread) against
+       the same session through two thread replicas."""
+    import shutil
+    import tempfile
+    import threading
+
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.index import TastiIndex
+    from repro_torch.core.propagation import propagate_numeric
+    from repro_torch.kernels.distance_topk import ops as topk_ops
+    from repro_torch.kernels.distance_topk.ops import distance_topk
+    from repro_torch.kernels.fpf_update.ops import fpf_update
+    from repro_torch.kernels.propagate import ops as propagate_ops
+    from repro_torch.kernels.propagate.ops import propagate
+    from repro_torch.loadgen import (ArrivalProcess, OpenLoopGenerator,
+                                     SpecClass, SpecMix)
+    from repro_torch.serve import LabelStore, QueryClient, QueryServer
+
+    truth = {"score_count": float(wl.counts.mean()),
+             "score_has_object": float((wl.counts > 0).mean())}
+    rows_seen = []
+
+    def check_rows(rows, specs):
+        """Aggregations within 3 CI half-widths of the true mean."""
+        for row, spec in zip(rows, specs):
+            rows_seen.append(row)
+            if row["kind"] == "aggregation":
+                want = truth[spec["score"]]
+                assert abs(row["estimate"] - want) <= 3 * row[
+                    "ci_half_width"], (row, want)
+
+    def start(engine, store=None):
+        srv = QueryServer(engine, port=0, store=store).start()
+        client = QueryClient(srv.url, timeout=300.0)
+        client.wait_ready(60)
+        return srv, client
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    out = {}
+    try:
+        stem = os.path.join(tmp, "ns")
+        t0 = time.perf_counter()
+        index.save(stem)
+        store = LabelStore.for_index(stem, index)
+        engine = QueryEngine(index, wl, crack=True)
+        store.attach(engine.broker, engine)
+        assert engine.resident.enabled
+        srv, client = start(engine, store)
+        out["save_mount_s"] = time.perf_counter() - t0
+        fpf_update.launches = 0
+        topk_ops.reset_launches()
+        propagate_ops.reset_launches()
+
+        # 2. concurrent sessions
+        rng = np.random.default_rng(0)
+        plan = [[serve_specs(rng) for _ in range(per_thread)]
+                for _ in range(threads)]
+        answers, errors = {}, []
+
+        def client_thread(i):
+            c = QueryClient(srv.url, timeout=300.0)
+            try:
+                for j, specs in enumerate(plan[i]):
+                    answers[i, j] = c.query(specs)
+            except Exception as e:  # noqa: BLE001 - fails the phase below
+                errors.append(f"{type(e).__name__}: {e}")
+
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=client_thread, args=(i,))
+                   for i in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(600)
+        out["concurrent_s"] = time.perf_counter() - t0
+        assert not errors and len(answers) == threads * per_thread, errors
+        for (i, j), ans in answers.items():
+            check_rows(ans["results"], plan[i][j])
+        stats = client.stats()
+        out["concurrent"] = {
+            "requests": threads * per_thread,
+            "sessions": stats["server"]["sessions"],
+            "coalesced": stats["server"]["coalesced"],
+            "fresh": sum(a["request"]["fresh"] for a in answers.values()),
+            "cached": sum(a["request"]["cached"] for a in answers.values())}
+        log(f"phase serve concurrent: {threads} x {per_thread} requests in "
+            f"{out['concurrent_s']:.2f} s: {out['concurrent']}")
+
+        # 3. open-loop load
+        mix = SpecMix([SpecClass("mixed", serve_specs)], seed=1)
+
+        def post(specs, budget=None, priority=None, deadline_ms=None,
+                 name=None, trace_id=None):
+            res = client.query(specs, budget=budget, priority=priority,
+                               deadline_ms=deadline_ms, trace_id=trace_id)
+            check_rows(res["results"], specs)
+            return res
+
+        t0 = time.perf_counter()
+        report = OpenLoopGenerator(post, mix, ArrivalProcess(
+            rate=rate, seed=2), seconds).run()
+        wall = time.perf_counter() - t0
+        ok = [o for o in report.outcomes if o.ok]
+        lat = np.asarray([o.latency_s * 1e3 for o in ok])
+        p50, p90, p99 = (float(v) for v in np.percentile(lat, [50, 90, 99]))
+        out["open_loop"] = {
+            "rate_per_s": rate, "seconds": seconds, "wall_s": wall,
+            "fired": report.offered - report.dropped,
+            "offered": report.offered, "completed": report.completed,
+            "dropped": report.dropped, "errors": report.errors,
+            "p50_ms": p50, "p90_ms": p90, "p99_ms": p99,
+            "max_fire_lag_ms": report.max_fire_lag_ms,
+            "fresh": sum(o.response["request"]["fresh"] for o in ok),
+            "cached": sum(o.response["request"]["cached"] for o in ok),
+            "achieved_per_s": report.completed / wall}
+        errs = [o.error for o in report.outcomes if not o.ok]
+        log(f"phase serve open loop: {out['open_loop']}"
+            + (f"; first errors {errs[:3]}" if errs else ""))
+        assert report.errors == 0 and report.dropped == 0, errs[:3]
+        assert report.completed == report.offered > 0
+
+        # 4. the repeat set at the final index, then a warm restart
+        repeat = [specs for per in plan for specs in per]
+        repeat = [[dict(s, crack=False) for s in specs] for specs in repeat]
+        t0 = time.perf_counter()
+        before = [client.query(specs) for specs in repeat]
+        out["repeat_first_s"] = time.perf_counter() - t0
+        for ans, specs in zip(before, repeat):
+            check_rows(ans["results"], specs)
+        stats = client.stats()
+        assert stats["server"]["errors"] == 0, stats["server"]
+        version = index.version
+        srv.shutdown()
+        proxy = engine.proxy_scores("score_count")
+        host = propagate_numeric(index.rep_scores(wl.score_count),
+                                 index.topk_ids, index.topk_d2)
+        assert proxy.shape == (len(wl.features),) and np.isfinite(proxy).all()
+        np.testing.assert_allclose(proxy, host, rtol=1e-5, atol=1e-5)
+        out["engine"] = dict(engine.stats)
+        out["resident"] = dict(engine.resident.stats)
+        out["broker"] = {k: stats["broker"][k] for k in (
+            "requests", "fresh", "cached", "dedup_inflight", "batches")}
+        out["index"] = {"version": version, "reps": index.n_reps}
+        out["store_labels"] = len(store)
+        t0 = time.perf_counter()
+        index.save(stem)
+        index2 = TastiIndex.load(stem, device="cuda")
+        store2 = LabelStore.for_index(stem, index2)
+        engine2 = QueryEngine(index2, wl, crack=True)
+        seeded = store2.attach(engine2.broker, engine2)
+        srv2, client2 = start(engine2, store2)
+        out["restart_s"] = time.perf_counter() - t0
+        assert index2.version == version and seeded == len(store) > 0
+        t0 = time.perf_counter()
+        after = [client2.query(specs) for specs in repeat]
+        out["repeat_warm_s"] = time.perf_counter() - t0
+        drop = ("n_oracle_fresh", "n_oracle_cached", "query_cost_s",
+                "session")
+        for a, b in zip(before, after):
+            assert [{k: v for k, v in r.items() if k not in drop}
+                    for r in a["results"]] == \
+                [{k: v for k, v in r.items() if k not in drop}
+                 for r in b["results"]]
+        out["warm_restart"] = {
+            "requests": len(repeat), "seeded": seeded,
+            "fresh_before": sum(a["request"]["fresh"] for a in before),
+            "fresh": sum(a["request"]["fresh"] for a in after),
+            "cached": sum(a["request"]["cached"] for a in after)}
+        log(f"phase serve warm restart: index version {version}, "
+            f"{index.n_reps} reps; {out['warm_restart']}; restart "
+            f"{out['restart_s']:.2f} s, repeats {out['repeat_first_s']:.2f}"
+            f" s before and {out['repeat_warm_s']:.2f} s after")
+        assert out["warm_restart"]["fresh"] == 0, out["warm_restart"]
+        assert client2.stats()["server"]["errors"] == 0
+        srv2.shutdown()
+
+        # 5. process replicas against thread replicas, one session each
+        session = [dict(s, crack=False) for s in (
+            repeat[0] + [{"kind": "selection", "score": "score_has_object",
+                          "budget": 300, "seed": 7},
+                         {"kind": "limit", "score": "score_rare",
+                          "k_results": 5, "seed": 7}])]
+        rows = {}
+        t0 = time.perf_counter()
+        for backend in ("process", "thread"):
+            eng = QueryEngine(index2, wl, oracle_replicas=2,
+                              oracle_backend=backend)
+            srv3, client3 = start(eng)
+            try:
+                res = client3.query(session)
+                rows[backend] = ([{k: v for k, v in r.items()
+                                   if k != "session"}
+                                  for r in res["results"]],
+                                 res["request"]["fresh"])
+                pool = eng.oracle_pool
+                assert pool is not None and pool.backend == backend
+                snap = pool.snapshot()
+                assert all(snap["per_replica_alive"]), snap
+            finally:
+                srv3.shutdown()
+        out["replicas_s"] = time.perf_counter() - t0
+        assert rows["process"] == rows["thread"], rows
+        out["process_replicas"] = {"rows": len(rows["process"][0]),
+                                   "fresh": rows["process"][1]}
+        log(f"phase serve process replicas: one {len(session)}-spec "
+            f"session, rows equal to the thread backend's, fresh "
+            f"{rows['process'][1]}, {out['replicas_s']:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out["launches"] = {"fpf_update": fpf_update.launches,
+                       "distance_topk": distance_topk.launches,
+                       "propagate": propagate.launches}
+    out["distance_topk_by_route"] = dict(distance_topk.launches_by_path)
+    out["propagate_by_mode"] = dict(propagate.launches_by_path)
+    out["propagate_plain_prescales"] = propagate.plain_prescales
+    res = out["resident"]
+    log(f"serve: engine {out['engine']}; resident {res}; broker "
+        f"{out['broker']}; launches {out['launches']}, distance_topk by "
+        f"route {out['distance_topk_by_route']}, propagate by mode "
+        f"{out['propagate_by_mode']}, top1 prescales by the plain version "
+        f"{out['propagate_plain_prescales']}")
+    assert out["distance_topk_by_route"]["simt"] == 0, out
+    assert out["distance_topk_by_route"]["tc"] > 0 or \
+        out["engine"]["cracked_records"] == 0, out
+    assert out["launches"]["propagate"] > 0 and res["computes"] > 0, out
+    assert res["computes"] > res["fallbacks"], res
+    return out
+
+
 def run_tasti_t(dev, wl, n_train: int, n_reps: int, specs, profile,
                 pt_rows) -> dict:
     """tasti_t: the paper's TASTI-T build (the default TastiConfig:
@@ -1163,6 +1445,41 @@ def check_lm_train_step(dev, cfg, opt, batch) -> dict:
             far = far[a >= LM_LARGE_G * a.square().mean().sqrt()]
         return float(far.double().mean())
 
+    def flips(i, most=16):
+        """The elements of large reference gradient that ``outside`` counts
+        in leaf i: index, float32 gradient, the step's own (clipped)
+        gradient read back from its first moment, the parameter before,
+        after, the float64 update from the float32 gradient (``want``) and
+        the float64 update from the step's own gradient (``redo``).  Where
+        ``redo`` lands within one ulp of ``after`` the step's arithmetic
+        is right and its bf16 gradient made the difference."""
+        g = g32[i]
+        want = adamw_step1_reference(p0[i], g, ref_norm, opt, lr)
+        g_step = mu[i].double() / (1 - opt.b1)          # clipped already
+        redo = adamw_step1_reference(p0[i], g_step, opt.clip_norm, opt, lr)
+        a = g.abs()
+        far = (bf16_ulps(got[i], want.to(torch.bfloat16)) > 1) & (
+            a >= LM_LARGE_G * a.square().mean().sqrt())
+        idx = far.nonzero()
+        redo_ulps = bf16_ulps(got[i][far], redo.to(torch.bfloat16)[far])
+        sign_flips = int((torch.sign(g_step[far]) != torch.sign(
+            g[far].double())).sum())
+        shown = []
+        for t in idx[:most].tolist():
+            at = tuple(t)
+            shown.append({
+                "index": at, "g_f32": float(g[at]),
+                "g_step": float(g_step[at]), "before": float(p0[i][at]),
+                "after": float(got[i][at]), "want": float(want[at]),
+                "redo": float(redo[at]),
+                "ulps_want": int(bf16_ulps(got[i][at], want[at].to(
+                    torch.bfloat16))),
+                "ulps_redo": int(bf16_ulps(got[i][at], redo[at].to(
+                    torch.bfloat16)))})
+        return {"n": len(idx), "redo_within_1_ulp": int(
+            (redo_ulps <= 1).sum()), "gradient_sign_flips": sign_flips,
+            "elements": shown}
+
     rows = {}
     for i, name in enumerate(names):
         m_ref = (1 - opt.b1) * scale * g32[i].double()
@@ -1172,6 +1489,8 @@ def check_lm_train_step(dev, cfg, opt, batch) -> dict:
             "outside_share": outside(i, g32[i]),
             "outside_share_all": outside(i, g32[i], every=True),
             "moved_share": float((got[i] != p0[i]).double().mean())}
+        if rows[name]["outside_share"] > 0:
+            rows[name]["flips"] = flips(i)
     # planted faults, on the largest leaf of the layers (every element has
     # a gradient there, unlike the embedding's rows of absent tokens) and on
     # the first pair of leaves of one shape (their gradients swapped)
@@ -1201,6 +1520,13 @@ def check_lm_train_step(dev, cfg, opt, batch) -> dict:
         log(f"    {name}: moment rel L2 {r['moment_rel_l2']:.4g}, outside "
             f"{r['outside_share']:.4g} (all {r['outside_share_all']:.4g}), "
             f"moved {r['moved_share']:.4f}")
+        if "flips" in r:
+            f = r["flips"]
+            log(f"      {f['n']} elements of large gradient outside; the "
+                f"update from the step's own gradient within 1 ulp of the "
+                f"step at {f['redo_within_1_ulp']}; the step's gradient of "
+                f"the other sign at {f['gradient_sign_flips']}; first "
+                f"{len(f['elements'])}: {json.dumps(f['elements'])}")
     assert abs(gnorm - ref_norm) <= LM_GRAD_RTOL * ref_norm, (gnorm, ref_norm)
     assert worst_moment <= LM_GRAD_RTOL, rows
     assert worst_share <= LM_FLIP_SHARE, rows
@@ -1562,7 +1888,16 @@ def main(argv=None) -> None:
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     assert all(v > 0 for v in launches.values()), launches
     assert engine.stats["proxy_device_computes"] > 0, engine.stats
-    del engine, system, index
+    del engine, system
+    torch.cuda.empty_cache()
+
+    with Phase("serve", args.profile) as ph:
+        serve = run_serve(dev, wl, index, SERVE_RATE, SERVE_SECONDS)
+    log(f"phase serve: {ph.seconds:.2f} s")
+    for name, n in serve["launches"].items():
+        launches[name] += n
+    topk_paths["serve"] = serve["distance_topk_by_route"]
+    del index
     torch.cuda.empty_cache()
 
     tasti_t = run_tasti_t(dev, wl, args.n_train, args.reps, specs,
@@ -1653,6 +1988,7 @@ def main(argv=None) -> None:
     results[0]["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
                                for fn, regs, spill in ptxas["distance_topk"]}
     results[2]["launches_by_path"] = dict(propagate.launches_by_path)
+    results[2]["serve_launches_by_mode"] = serve["propagate_by_mode"]
     results[2]["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
                                for fn, regs, spill in ptxas["propagate"]}
     kernels = []
@@ -1663,6 +1999,7 @@ def main(argv=None) -> None:
                         "replaces": sources[name],
                         "launches": launches[name], **{
                             k: v for k, v in res.items() if k != "name"}})
+    log("serve path: " + json.dumps(serve))
     log("training paths: " + json.dumps({
         "tasti_t": tasti_t, "lm_train": lm_train,
         "lm_train_resilient": resilient}))

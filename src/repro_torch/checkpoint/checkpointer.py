@@ -10,10 +10,12 @@ collection — the on-disk layout of ``repro.checkpoint.checkpointer``.
 * Atomicity: write to ``step_XXXX.tmp`` then rename; interrupted writes are
   invisible to ``latest_step``.  ``keep`` bounds the steps kept.
 
-bfloat16 leaves are stored as their raw 16 bits (uint16, manifest dtype
-``bfloat16``): numpy has no bfloat16 without ``ml_dtypes``.  The JAX package
-stores them as float32 under the same manifest dtype; ``restore`` reads
-both.  A float32 checkpoint restores leaf for leaf in either package.
+bfloat16 leaves are stored as float32 under manifest dtype ``bfloat16``,
+as the JAX package stores them (numpy has no bfloat16 without
+``ml_dtypes``; float32 holds every bfloat16 value exactly), so a
+checkpoint restores leaf for leaf in either package.  ``restore`` also
+reads the raw-bits form earlier versions of this package wrote (uint16
+under manifest ``bfloat16``).
 """
 from __future__ import annotations
 
@@ -34,12 +36,12 @@ from repro_torch.models.common import (PyTree, tree_leaves_with_names,
 
 def _host(leaf) -> np.ndarray:
     """A leaf (tensor, numpy array or number) as a host array of its own,
-    bfloat16 as its raw bits.  Always a copy: ``.cpu()`` of a CPU tensor is
-    the tensor itself, which the train step goes on updating in place."""
+    bfloat16 as float32.  Always a copy: ``.cpu()`` of a CPU tensor is the
+    tensor itself, which the train step goes on updating in place."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16).copy()
+            return t.float().numpy()        # .float() copies
         return t.numpy().copy()
     a = np.asarray(leaf)
     if a.dtype == object:
@@ -139,6 +141,7 @@ class Checkpointer:
             for i, (_, tgt) in enumerate(pairs):
                 arr = data[f"a{i}"]
                 if manifest["dtypes"][i] == "bfloat16" and arr.dtype == np.uint16:
+                    # the raw bits earlier versions of the port wrote
                     t = torch.from_numpy(arr.view(np.int16).copy()).view(
                         torch.bfloat16)
                 else:

@@ -68,6 +68,7 @@ class ResidentIndexState:
             "uploads": 0,        # rep-structure versions taken up
             "invalidations": 0,  # crack listeners dropping the version
             "fallbacks": 0,      # propagate() calls answered by the host path
+            "computes": 0,       # propagate() calls answered on the device
         }
         self.set_obs(obs)
 
@@ -122,4 +123,7 @@ class ResidentIndexState:
                                  device=ids.device)
         out = _propagate(scores, ids, d2, mode, n_classes=n_classes,
                          clip01=clip01)
-        return out.cpu().numpy().astype(np.float64)
+        out = out.cpu().numpy().astype(np.float64)
+        with self._lock:
+            self.stats["computes"] += 1
+        return out

@@ -7,6 +7,8 @@
   triples.
 * ``triplet_loss``: the paper's margin hinge on ||phi(a)-phi(p)|| vs
   ||phi(a)-phi(n)||.
+* ``population_triplet_loss``: a Monte-Carlo estimate of the population
+  loss (Eq. 1) over annotated ids, host numpy.
 * ``train_embedder``: AdamW (``repro_torch.optim.adamw``) on mini-batches of
   triples, on the embedder's device.  Attention goes through the plain
   route: no kernel of the port has a backward.
@@ -106,3 +108,29 @@ def train_embedder(model: Embedder, features: np.ndarray,
             yield (trip[torch.as_tensor(sel, device=dev)],)
 
     return model, minimize(list(model.parameters()), loss_fn, batches(), opt)
+
+
+def population_triplet_loss(embeddings: np.ndarray, dist_fn, ids: np.ndarray,
+                            m_radius: float, margin: float,
+                            n_samples: int = 2000, seed: int = 0) -> float:
+    """Monte-Carlo estimate of L(phi; M, m) (Eq. 1) over annotated ids —
+    used by the theory validators.  Host numpy, as in the JAX package: the
+    same inputs and seed draw the same triples.  ``embeddings`` is indexed
+    by position in ``ids``."""
+    rng = np.random.default_rng(seed)
+    n = len(ids)
+    total, used = 0.0, 0
+    for _ in range(n_samples):
+        a = int(rng.integers(n))
+        d_all = np.array([dist_fn(int(ids[a]), int(ids[j])) for j in range(n)])
+        close = np.where((d_all < m_radius) & (np.arange(n) != a))[0]
+        far = np.where(d_all >= m_radius)[0]
+        if len(close) == 0 or len(far) == 0:
+            continue
+        p = int(rng.choice(close))
+        ng = int(rng.choice(far))
+        d_ap = np.linalg.norm(embeddings[a] - embeddings[p])
+        d_an = np.linalg.norm(embeddings[a] - embeddings[ng])
+        total += max(0.0, margin + d_ap - d_an)
+        used += 1
+    return total / max(used, 1)

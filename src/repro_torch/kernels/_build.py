@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
 
@@ -145,6 +146,16 @@ def check(name: str, status: int, what: str) -> None:
     if status != 0:
         msg = load(name).repro_error_string(status).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({status})")
+
+
+def count_launch(wrapper, path=None) -> None:
+    """Add one to ``wrapper.launches`` and, given a ``path``, to
+    ``wrapper.launches_by_path[path]``, under a lock: serving threads
+    launch concurrently."""
+    with _count_lock:
+        wrapper.launches += 1
+        if path is not None:
+            wrapper.launches_by_path[path] += 1
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -91,8 +91,7 @@ def _launch(x: torch.Tensor, r: torch.Tensor, k: int, route: str):
                 _DTYPES[x.dtype], ROUTES.index(route), _build.ptr(out_d),
                 _build.ptr(out_i), _build.stream_of(x))
     _build.check("distance_topk", status, f"distance_topk ({route})")
-    distance_topk.launches += 1
-    distance_topk.launches_by_path[route] += 1
+    _build.count_launch(distance_topk, route)
     return out_d, out_i
 
 

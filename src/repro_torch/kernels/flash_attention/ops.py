@@ -91,8 +91,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                 _DTYPES[q.dtype], ROUTES.index(route), _build.stream_of(q))
     _build.check("flash_attention", status,
                  f"flash_attention ({route})")
-    flash_attention.launches += 1
-    flash_attention.launches_by_path[route] += 1
+    _build.count_launch(flash_attention, route)
     return out
 
 

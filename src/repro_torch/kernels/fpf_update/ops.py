@@ -40,7 +40,7 @@ def _launch(x: torch.Tensor, rep: torch.Tensor, min_d2: torch.Tensor):
                 _DTYPES[x.dtype], _build.ptr(new_min), _build.ptr(best),
                 _build.ptr(idx), _build.ptr(val), _build.stream_of(x))
     _build.check("fpf_update", status, "fpf_update")
-    fpf_update.launches += 1
+    _build.count_launch(fpf_update)
     return new_min, idx, val
 
 

@@ -59,8 +59,7 @@ def _launch(rep_scores, topk_ids, topk_d2, mode, n_classes, clip01, eps):
                 None if stats is None else _build.ptr(stats), STATS_BLOCKS,
                 strips, _build.ptr(out), _build.stream_of(out))
     _build.check("propagate", status, f"propagate ({mode})")
-    propagate.launches += 1
-    propagate.launches_by_path[mode] += 1
+    _build.count_launch(propagate, mode)
     return out
 
 

@@ -374,3 +374,92 @@ def test_train_embedder_step_on_the_card_matches_the_cpu(cuda, backbone):
                 torch.testing.assert_close(b[k], a[k], rtol=1e-5, atol=1e-5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_bfloat16_embedding_gradient_sums_in_float32_on_the_card(cuda):
+    """The card's backward of the bfloat16 embedding lookup (CUDA's
+    index_add_ into a float32 buffer) is within one bf16 rounding (2^-8
+    relative) of the exact sum, as on the CPU
+    (tests/test_torch_lm_train.py)."""
+    from repro_torch.models import lm
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(50, 8, generator=gen).bfloat16()
+    tokens = torch.randint(0, 3, (2, 2048), generator=gen)
+    g_out = (torch.randn(2, 2048, 8, generator=gen) * 1e-3).bfloat16()
+    exact = torch.zeros(50, 8, dtype=torch.float64).index_add_(
+        0, tokens.reshape(-1), g_out.reshape(-1, 8).double())
+    table_dev = table.to(cuda).requires_grad_()
+    with torch.enable_grad():
+        out = lm._embed_tokens({"embed": table_dev}, tokens.to(cuda))
+        (got,) = torch.autograd.grad(out, table_dev, g_out.to(cuda))
+    torch.testing.assert_close(out.cpu(), table[tokens], rtol=0, atol=0)
+    assert got.dtype == torch.bfloat16 and got.device.type == "cuda"
+    assert float((got.cpu().double() - exact).norm() / exact.norm()) \
+        <= 2 ** -8
+
+
+def test_distance_topk_ref_leaves_the_tf32_setting_alone_on_the_card(cuda):
+    """On CUDA tensors the plain version computes in full float32 and puts
+    the process-wide matmul precision (and allow_tf32) back as it found
+    it, whatever that was."""
+    from repro_torch.kernels.distance_topk.ref import distance_topk_tc_ref
+    prev = torch.get_float32_matmul_precision()
+    x = torch.randn(300, 64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    x64 = x.double().cpu()
+    exact = torch.cdist(x64, x64[:40]).square().topk(3, largest=False).values
+    try:
+        for setting in ("high", "highest", "medium"):
+            torch.set_float32_matmul_precision(setting)
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            d2, ids = distance_topk_ref(x, x[:40], 3)
+            distance_topk_tc_ref(x, x[:40], 3)
+            assert torch.get_float32_matmul_precision() == setting
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+            torch.testing.assert_close(d2.cpu().double(), exact,
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def test_served_proxies_on_the_card_match_the_host(cuda, tmp_path):
+    """A port QueryServer over a CUDA index: its sessions' proxies go
+    through the resident propagate kernel (device computes, no fallback
+    without a crack), a warm restart costs 0 fresh calls, and the proxy
+    equals the float64 host propagation (rtol 1e-5, atol 1e-6)."""
+    from repro_torch.core import propagation
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.index import TastiIndex
+    from repro_torch.core.schema import make_workload
+    from repro_torch.serve import LabelStore, QueryClient, QueryServer
+    wl = make_workload("night-street", n_frames=3000)
+    index = TastiIndex.build(wl.features, 200, wl.target_dnn_batch, k=8,
+                             device=cuda)
+    stem = str(tmp_path / "idx")
+    index.save(stem)
+    specs = [{"kind": "aggregation", "score": "score_count", "err": 0.1},
+             {"kind": "selection", "score": "score_has_object",
+              "budget": 100}]
+    fresh = []
+    for _ in range(2):
+        idx = TastiIndex.load(stem, device="cuda")
+        store = LabelStore.for_index(stem, idx)
+        eng = QueryEngine(idx, wl)
+        store.attach(eng.broker, eng)
+        assert eng.resident.enabled
+        srv = QueryServer(eng, port=0, admission_window=0.0,
+                          store=store).start()
+        try:
+            out = QueryClient(srv.url).query(specs)
+            fresh.append(out["request"]["fresh"])
+        finally:
+            srv.shutdown()
+        assert eng.resident.stats["computes"] > 0
+        assert eng.resident.stats["fallbacks"] == 0
+        assert eng.stats["proxy_device_computes"] == \
+            eng.resident.stats["computes"]
+    assert fresh[0] > 0 and fresh[1] == 0
+    want = propagation.propagate_numeric(idx.rep_scores(wl.score_count),
+                                         idx.topk_ids, idx.topk_d2)
+    np.testing.assert_allclose(eng.proxy_scores("score_count"), want,
+                               rtol=1e-5, atol=1e-6)

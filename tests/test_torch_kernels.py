@@ -386,3 +386,33 @@ def test_each_kernel_library_hashes_its_own_source_and_headers(tmp_path,
                                                           "flash_attention"]
     assert _build._lib_path("flash_attention").name == \
         f"flash_attention-{again['flash_attention']}.so"
+
+
+def test_launch_counts_lose_no_update_under_threads():
+    """Serving threads launch kernels concurrently: the wrappers' counts go
+    through one lock, so no increment is lost (16 threads, a switch
+    interval of 1 microsecond)."""
+    import sys
+    import threading
+    from repro_torch.kernels import _build
+
+    def counted():
+        pass
+
+    counted.launches = 0
+    counted.launches_by_path = {"a": 0, "b": 0}
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda i=i: [
+            _build.count_launch(counted, "ab"[i % 2]) for _ in range(2000)])
+            for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert counted.launches == 32000
+    assert counted.launches_by_path == {"a": 16000, "b": 16000}

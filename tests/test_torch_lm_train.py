@@ -12,6 +12,7 @@ weights all but the elements Adam's normalised step moves by noise
 (``_assert_adam_close``); the data pipeline and float32 checkpoints
 exactly."""
 import dataclasses
+import json
 import re
 
 import numpy as np
@@ -275,7 +276,7 @@ def test_checkpoint_async_and_gc(tmp_path):
 def test_checkpoint_async_snapshots_before_returning(tmp_path, dtype):
     """save_async copies every leaf before it returns: an in-place update of
     a CPU leaf after the call (the train step's own) does not reach the
-    file, bfloat16 leaves (kept as raw bits) included."""
+    file, bfloat16 leaves (kept as float32) included."""
     ck = Checkpointer(tmp_path)
     st = {"w": torch.ones(4, dtype=dtype), "m": torch.zeros(3, 5, dtype=dtype)}
     ck.save_async(1, st)
@@ -329,22 +330,39 @@ def test_float32_checkpoints_restore_across_packages(tmp_path):
 
 
 def test_bfloat16_checkpoints_across_packages(tmp_path):
-    """The JAX package stores a bf16 leaf as float32, the port as its raw
-    bits (no ml_dtypes on the card's machine): the port restores both;
-    the JAX package reads the port's bits as numbers (ROADMAP.md §C)."""
-    vals = np.array([1.5, -0.25, 3.0, 1e-3], np.float32)
+    """Both packages store a bf16 leaf as float32 under manifest dtype
+    ``bfloat16``: each restores the other's file exactly, and the port
+    still restores the raw uint16 bits its earlier versions wrote."""
+    vals = np.array([1.5, -0.25, 3.0, 1e-3, -7.1e4, 2.0 ** -130], np.float32)
+    want = torch.from_numpy(vals).bfloat16()
     JaxCheckpointer(tmp_path / "j").save(
         1, {"b": jnp.asarray(vals).astype(jnp.bfloat16)})
     got, _ = Checkpointer(tmp_path / "j").restore(
-        1, {"b": torch.zeros(4, dtype=torch.bfloat16)})
-    torch.testing.assert_close(got["b"], torch.from_numpy(vals).bfloat16(),
-                               rtol=0, atol=0)
-    Checkpointer(tmp_path / "t").save(1, {"b": torch.from_numpy(vals).bfloat16()})
+        1, {"b": torch.zeros(6, dtype=torch.bfloat16)})
+    assert got["b"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["b"].view(torch.int16).numpy(),
+                                  want.view(torch.int16).numpy())
+    Checkpointer(tmp_path / "t").save(1, {"b": want})
+    with np.load(tmp_path / "t" / "step_00000001" / "arrays.npz") as z:
+        assert z["a0"].dtype == np.float32
     back, _ = JaxCheckpointer(tmp_path / "t").restore(
-        1, {"b": jnp.zeros(4, jnp.bfloat16)})
-    assert not np.array_equal(np.asarray(back["b"], np.float32),
-                              np.asarray(jnp.asarray(vals).astype(jnp.bfloat16),
-                                         np.float32))
+        1, {"b": jnp.zeros(6, jnp.bfloat16)})
+    assert back["b"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(
+        np.asarray(back["b"]).view(np.uint16),
+        np.asarray(jnp.asarray(vals).astype(jnp.bfloat16)).view(np.uint16))
+    # a file of the old format: the leaf's raw bits as uint16
+    old = tmp_path / "old" / "step_00000001"
+    old.mkdir(parents=True)
+    np.savez(old / "arrays.npz",
+             a0=want.view(torch.int16).numpy().view(np.uint16))
+    (old / "manifest.json").write_text(json.dumps(
+        {"step": 1, "names": ["b"], "shapes": [[6]], "dtypes": ["bfloat16"],
+         "extra": {}, "time": 0.0}))
+    got, _ = Checkpointer(tmp_path / "old").restore(
+        1, {"b": torch.zeros(6, dtype=torch.bfloat16)})
+    np.testing.assert_array_equal(got["b"].view(torch.int16).numpy(),
+                                  want.view(torch.int16).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -223,6 +223,30 @@ with tempfile.TemporaryDirectory() as d:
     train.main(["--preset", "ci", "--steps", "6", "--ckpt-every", "3",
                 "--inject-failure-at", "4", "--ckpt-dir", d,
                 "--device", "cpu"])
+# the serving slice: label store, HTTP server and client, the load
+# generator, the serving CLI's module, one request and a short open loop
+import repro_torch.launch.serve_queries
+from repro_torch.core.engine import QueryEngine
+from repro_torch.core.triplet import population_triplet_loss
+from repro_torch.loadgen import (ArrivalProcess, OpenLoopGenerator,
+                                 SpecClass, SpecMix)
+from repro_torch.serve import LabelStore, QueryClient, QueryServer
+with tempfile.TemporaryDirectory() as d:
+    store = LabelStore.for_index(d + "/s", s.index)
+    eng = QueryEngine(s.index, wl)
+    store.attach(eng.broker, eng)
+    srv = QueryServer(eng, port=0, admission_window=0.0, store=store).start()
+    c = QueryClient(srv.url)
+    spec = {"kind": "aggregation", "score": "score_count"}
+    assert c.query([spec])["request"]["fresh"] > 0
+    report = OpenLoopGenerator(
+        lambda specs, **kw: c.query(specs),
+        SpecMix([SpecClass("agg", [spec])]), ArrivalProcess(rate=20.0),
+        0.3).run()
+    assert report.completed == report.offered and report.errors == 0
+    srv.shutdown()
+assert population_triplet_loss(np.eye(3), lambda i, j: float(i != j),
+                               np.arange(3), 0.5, 1.0, n_samples=5) >= 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -267,4 +291,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(saved,
         train_query_proxy(x, np.arange(5), np.ones(5))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--steps", "1"])
+    # a serving mount: the spec names no device, so CUDA, and it raises
+    from repro_torch.serve import WorkloadRegistry, WorkloadSpec
+    registry = WorkloadRegistry()
+    registry.declare(WorkloadSpec(name="v", dataset="night-street",
+                                  n_records=N, index=stem))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        registry.get("v")
     assert device_mod.resolve_device("cpu").type == "cpu"

@@ -445,3 +445,54 @@ def test_query_cli_builds_in_process_with_quick(capsys):
     agg = doc["results"][0]
     assert np.isfinite(agg["estimate"]) and agg["n_invocations"] > 0
     assert doc["results"][1]["n_selected"] > 0
+
+
+# ---------------------------------------------------------------------------
+# population_triplet_loss (the theory validators' estimate of Eq. 1)
+# ---------------------------------------------------------------------------
+
+def _coords_and_dist(seed=0, n=80):
+    coords = np.random.default_rng(seed).uniform(0, 10, size=(n, 2))
+    return coords, lambda i, j: float(np.linalg.norm(coords[i] - coords[j]))
+
+
+@pytest.mark.parametrize("emb_kind,seed", [("scaled", 0), ("random", 0),
+                                           ("random", 3)])
+def test_population_triplet_loss_matches_jax(emb_kind, seed):
+    """The same numpy inputs and seed draw the same triples: the estimate
+    equals the JAX function's (rtol 1e-6; both sum float64 hinges)."""
+    coords, dist_fn = _coords_and_dist(seed)
+    emb = (coords * 10.0 if emb_kind == "scaled"
+           else np.random.default_rng(seed).normal(size=(80, 8)))
+    ids = np.arange(80)
+    for n_samples, sample_seed in ((400, 0), (150, 5)):
+        got = triplet.population_triplet_loss(
+            emb, dist_fn, ids, m_radius=1.0, margin=1.0,
+            n_samples=n_samples, seed=sample_seed)
+        want = jax_triplet.population_triplet_loss(
+            emb, dist_fn, ids, m_radius=1.0, margin=1.0,
+            n_samples=n_samples, seed=sample_seed)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    if emb_kind == "random":
+        assert got > 0.2
+
+
+def test_population_triplet_loss_zero_for_a_perfect_embedding():
+    """Clusters of radius < 0.5 set 5 apart: close means the same cluster,
+    and an embedding scaled by 10 separates clusters by more than the
+    margin, so every sampled hinge is 0; the reference's own check (80
+    uniform points, coords * 10) stays below 0.05."""
+    rng = np.random.default_rng(0)
+    centers = np.asarray([[0.0, 0.0], [5.0, 0.0], [0.0, 5.0], [5.0, 5.0]])
+    coords = (centers[rng.integers(0, 4, size=60)]
+              + rng.uniform(-0.2, 0.2, size=(60, 2)))
+    dist_fn = lambda i, j: float(np.linalg.norm(  # noqa: E731
+        coords[i] - coords[j]))
+    ids = np.arange(60)
+    assert triplet.population_triplet_loss(
+        coords * 10.0, dist_fn, ids, m_radius=1.0, margin=1.0,
+        n_samples=300) == 0.0
+    coords, dist_fn = _coords_and_dist(0)
+    assert triplet.population_triplet_loss(
+        coords * 10.0, dist_fn, np.arange(80), m_radius=1.0, margin=1.0,
+        n_samples=400) < 0.05
