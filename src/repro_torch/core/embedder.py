@@ -99,9 +99,10 @@ class Embedder(nn.Module):
             tok = x.reshape(x.shape[0], self.cfg.seq_tokens, -1)
             h = torch.matmul(tok, p["proj_in"])
             for i in range(self.backbone.n_repeats):
-                h = blocks_lib.block_fwd(take_layer(p["blocks"], i), h,
-                                         self.backbone, angles=None,
-                                         causal=False, attn_impl=attn_impl)
+                h, _ = blocks_lib.block_fwd(take_layer(p["blocks"], i), h,
+                                            self.backbone, angles=None,
+                                            causal=False,
+                                            attn_impl=attn_impl)
             h = torch.matmul(h.mean(dim=1), p["proj_out"])
         if self.cfg.normalize:
             h = h / torch.clamp_min(torch.linalg.norm(h, dim=-1, keepdim=True),

@@ -4,10 +4,9 @@ variants threading per-layer state.  One *block* = one period of the
 config's repeating pattern; ``lm.py`` loops over ``n_repeats`` blocks with
 stacked parameters.
 
-Ported: mixer ``attn`` with mlp ``dense`` (or ``none``).  The ``mamba``,
-``mlstm`` and ``slstm`` mixers and ``moe`` MLPs raise
-``NotImplementedError`` (ROADMAP A3); cross-attention comes with the
-encoder-decoder stack, which ``lm`` refuses.
+Mixers ``attn``, ``mamba``, ``mlstm`` and ``slstm``; MLPs ``dense``,
+``moe`` and ``none``.  Cross-attention comes with the encoder-decoder
+stack, which is not ported yet (ROADMAP A4; ``lm`` refuses it).
 """
 from __future__ import annotations
 
@@ -16,28 +15,26 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import DTYPES, PyTree, rmsnorm, rmsnorm_specs
 
-
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attn":
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet: ROADMAP A3")
-    if spec.mlp not in ("dense", "none"):
-        raise NotImplementedError(
-            f"mlp {spec.mlp!r} is not ported yet: ROADMAP A3")
+_MIXER_SPECS = {"attn": attention.attention_specs, "mamba": mamba.mamba_specs,
+                "mlstm": xlstm.mlstm_specs, "slstm": xlstm.slstm_specs}
 
 
 def layer_specs(cfg: ModelConfig, spec: LayerSpec) -> PyTree:
-    _check_spec(spec)
+    if spec.mixer not in _MIXER_SPECS:
+        raise ValueError(spec.mixer)
     d = cfg.d_model
     dt = DTYPES[cfg.param_dtype]
     out: Dict[str, Any] = {"norm1": rmsnorm_specs(d, dt),
-                           "attn": attention.attention_specs(cfg)}
+                           spec.mixer: _MIXER_SPECS[spec.mixer](cfg)}
     if spec.mlp == "dense":
         out["norm2"] = rmsnorm_specs(d, dt)
         out["mlp"] = mlp.mlp_specs(cfg)
+    elif spec.mlp == "moe":
+        out["norm2"] = rmsnorm_specs(d, dt)
+        out["moe"] = moe.moe_specs(cfg)
     return out
 
 
@@ -50,25 +47,57 @@ def block_specs(cfg: ModelConfig) -> Tuple[PyTree, ...]:
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _mlp_out(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
+             spec: LayerSpec):
+    """The residual branch of the layer's MLP and its aux loss (None
+    without one)."""
+    if spec.mlp == "dense":
+        return mlp.mlp_fwd(params["mlp"], rmsnorm(params["norm2"], h,
+                                                  cfg.norm_eps)), None
+    if spec.mlp == "moe":
+        return moe.moe_fwd(params["moe"], rmsnorm(params["norm2"], h,
+                                                  cfg.norm_eps), cfg)
+    return None, None
+
+
 def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
               spec: LayerSpec, angles: Optional[torch.Tensor], causal: bool,
-              attn_impl: str = "kernel") -> torch.Tensor:
+              attn_impl: str = "kernel") -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Returns (h, aux_loss)."""
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
-    h = h + attention.attention_fwd(params["attn"], x, cfg, causal=causal,
-                                    angles=angles, impl=attn_impl)
-    if spec.mlp == "dense":
-        x2 = rmsnorm(params["norm2"], h, cfg.norm_eps)
-        h = h + mlp.mlp_fwd(params["mlp"], x2)
-    return h
+    if spec.mixer == "attn":
+        mixed = attention.attention_fwd(params["attn"], x, cfg,
+                                        causal=causal, angles=angles,
+                                        impl=attn_impl)
+    elif spec.mixer == "mamba":
+        mixed = mamba.mamba_fwd(params["mamba"], x, cfg)
+    elif spec.mixer == "mlstm":
+        mixed = xlstm.mlstm_fwd(params["mlstm"], x, cfg)
+    elif spec.mixer == "slstm":
+        mixed = xlstm.slstm_fwd(params["slstm"], x, cfg)
+    else:
+        raise ValueError(spec.mixer)
+    h = h + mixed
+    out, aux = _mlp_out(params, h, cfg, spec)
+    if out is not None:
+        h = h + out
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def block_fwd(params_tuple: Tuple[PyTree, ...], h: torch.Tensor,
               cfg: ModelConfig, angles: Optional[torch.Tensor], causal: bool,
-              attn_impl: str = "kernel") -> torch.Tensor:
+              attn_impl: str = "kernel") -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Returns (h, the aux losses of the period's layers summed)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pos, spec in enumerate(cfg.pattern):
-        h = layer_fwd(params_tuple[pos], h, cfg, spec, angles, causal,
-                      attn_impl=attn_impl)
-    return h
+        h, a = layer_fwd(params_tuple[pos], h, cfg, spec, angles, causal,
+                         attn_impl=attn_impl)
+        aux = aux + a
+    return h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -78,26 +107,60 @@ def block_fwd(params_tuple: Tuple[PyTree, ...], h: torch.Tensor,
 def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       seq: int) -> Dict[str, Tuple[Tuple[int, ...],
                                                    torch.dtype]]:
-    """Per-layer decode state as ``{name: (shape, dtype)}``."""
-    _check_spec(spec)
-    kv = ((batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim),
-          DTYPES[cfg.dtype])
-    return {"k": kv, "v": kv}
+    """Per-layer decode state as ``{name: (shape, dtype)}``: the reference's
+    shapes and dtypes (the recurrent states float32, Mamba's conv window in
+    the activations' dtype)."""
+    if spec.mixer == "attn":
+        kv = ((batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim),
+              DTYPES[cfg.dtype])
+        return {"k": kv, "v": kv}
+    if spec.mixer == "mamba":
+        return mamba.mamba_cache_specs(cfg, batch)
+    if spec.mixer == "mlstm":
+        hd = cfg.mlstm_inner // cfg.n_heads
+        return {"c": ((batch, cfg.n_heads, hd, hd), torch.float32),
+                "n": ((batch, cfg.n_heads, hd), torch.float32)}
+    if spec.mixer == "slstm":
+        return {name: ((batch, cfg.d_model), torch.float32)
+                for name in ("c", "n", "m", "h")}
+    raise ValueError(spec.mixer)
 
 
 def layer_decode(params: PyTree, h: torch.Tensor, cache: PyTree, pos: int,
                  cfg: ModelConfig, spec: LayerSpec,
                  angles: Optional[torch.Tensor]) -> Tuple[torch.Tensor,
                                                           PyTree]:
-    new_cache = dict(cache)
+    """One token through one layer.  The cache's tensors (views into the
+    stacked caches of ``lm.init_cache``) are updated in place, and the
+    returned cache is the one passed in."""
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
-    mixed, new_cache["k"], new_cache["v"] = attention.attention_decode(
-        params["attn"], x, cache["k"], cache["v"], pos, cfg, angles=angles)
+    if spec.mixer == "attn":
+        mixed, _, _ = attention.attention_decode(
+            params["attn"], x, cache["k"], cache["v"], pos, cfg,
+            angles=angles)
+        new = {}
+    elif spec.mixer == "mamba":
+        mixed, conv, hst = mamba.mamba_decode(params["mamba"], x,
+                                              cache["conv"], cache["h"], cfg)
+        new = {"conv": conv, "h": hst}
+    elif spec.mixer == "mlstm":
+        mixed, c, n = xlstm.mlstm_decode(params["mlstm"], x, cache["c"],
+                                         cache["n"], cfg)
+        new = {"c": c, "n": n}
+    elif spec.mixer == "slstm":
+        names = ("c", "n", "m", "h")
+        mixed, state = xlstm.slstm_decode(
+            params["slstm"], x, tuple(cache[k] for k in names), cfg)
+        new = dict(zip(names, state))
+    else:
+        raise ValueError(spec.mixer)
+    for name, value in new.items():
+        cache[name].copy_(value)
     h = h + mixed
-    if spec.mlp == "dense":
-        x2 = rmsnorm(params["norm2"], h, cfg.norm_eps)
-        h = h + mlp.mlp_fwd(params["mlp"], x2)
-    return h, new_cache
+    out, _ = _mlp_out(params, h, cfg, spec)
+    if out is not None:
+        h = h + out
+    return h, cache
 
 
 def block_decode(params_tuple: Tuple[PyTree, ...], h: torch.Tensor,

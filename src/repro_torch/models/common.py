@@ -27,6 +27,12 @@ class ParamSpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"  # normal | zeros | ones
+    init_scale: float = 1.0
+
+#: a leaf whose float32 draw would exceed this many bytes is drawn slice by
+#: slice along its leading axis (a stacked expert leaf of qwen3-moe-30b-a3b,
+#: (48, 128, 2048, 768), would take 38.6 GB in float32 at once)
+SLICE_DRAW_BYTES = 4 << 30
 
 
 def tree_map(fn: Callable, tree: PyTree) -> PyTree:
@@ -85,13 +91,19 @@ def tree_unflatten_like(tree: PyTree, leaves: list) -> PyTree:
 def init_params(specs: PyTree, generator: Optional[torch.Generator] = None,
                 device=None) -> PyTree:
     """Materialize parameters as ``repro.models.common.init_params`` draws
-    them: normal / sqrt(fan_in) with fan_in = ``shape[-2]`` (so a stacked
-    (n_repeats, in, out) leaf scales by ``in``), zeros and ones where the
-    spec says so.  Drawn in float32 from ``generator`` on its device, leaf
-    by leaf in flattening order, then cast and placed on ``device``: CUDA
-    unless the caller asks for another (``repro_torch.device``)."""
+    them: normal x init_scale / sqrt(fan_in) with fan_in = ``shape[-2]``
+    (so a stacked (n_repeats, in, out) leaf scales by ``in``), zeros and
+    ones where the spec says so.  Drawn in float32 from ``generator`` on its
+    device, leaf by leaf in flattening order, then cast and placed on
+    ``device``: CUDA unless the caller asks for another
+    (``repro_torch.device``).  A leaf whose float32 draw exceeds
+    ``SLICE_DRAW_BYTES`` is drawn slice by slice along its leading axis,
+    each slice cast into the placed tensor."""
     device = resolve_device(device)
     draw_on = generator.device if generator is not None else device
+
+    def draw(shape, scale) -> torch.Tensor:
+        return torch.randn(shape, generator=generator, device=draw_on) * scale
 
     def one(spec: ParamSpec) -> torch.Tensor:
         if spec.init == "zeros":
@@ -99,9 +111,13 @@ def init_params(specs: PyTree, generator: Optional[torch.Generator] = None,
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=spec.dtype, device=device)
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-        scale = 1.0 / np.sqrt(max(fan_in, 1))
-        return (torch.randn(spec.shape, generator=generator, device=draw_on)
-                * scale).to(device=device, dtype=spec.dtype)
+        scale = spec.init_scale / np.sqrt(max(fan_in, 1))
+        if 4 * int(np.prod(spec.shape)) <= SLICE_DRAW_BYTES:
+            return draw(spec.shape, scale).to(device=device, dtype=spec.dtype)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        for part in out:
+            part.copy_(draw(spec.shape[1:], scale))
+        return out
 
     def build(tree):            # draw in sorted-key order, keep the layout
         if isinstance(tree, dict):
@@ -116,8 +132,8 @@ def init_params(specs: PyTree, generator: Optional[torch.Generator] = None,
 
 def stack_specs(tree: PyTree, n: int) -> PyTree:
     """Add a leading stacked-layer dimension to every spec."""
-    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init),
-                    tree)
+    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init,
+                                        s.init_scale), tree)
 
 
 def take_layer(params: PyTree, i: int) -> PyTree:
@@ -193,3 +209,14 @@ def rmsnorm(params: PyTree, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``cap * tanh(x / cap)``; ``x`` itself when ``cap`` is 0."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)

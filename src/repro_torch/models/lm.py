@@ -1,10 +1,11 @@
-"""Unified decoder-only LM built from ``repro_torch.models.blocks``.
+"""Unified decoder-only LM built from ``repro_torch.models.blocks``: dense,
+MoE, hybrid (Mamba + attention) and xLSTM models.
 
 Parameters have the JAX package's layout: per-position trees stacked over
 ``n_repeats`` on a leading axis; the port loops over the repeats in Python
 (PyTorch runs eagerly; nothing needs ``lax.scan``).  No mesh constraints:
 the port runs on one device.  Vision inputs (qwen2-vl, M-RoPE) and the
-encoder-decoder stack (seamless) are not ported yet (ROADMAP A3) and raise.
+encoder-decoder stack (seamless) are not ported yet (ROADMAP A4) and raise.
 
 ``lm_loss`` trains: with ``cfg.remat == "full"`` each block is
 rematerialised in the backward pass (``torch.utils.checkpoint``, the JAX
@@ -36,11 +37,11 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder stack is not ported yet: "
-            "ROADMAP A3")
+            "ROADMAP A4")
     if cfg.vision_tokens or cfg.mrope_sections:
         raise NotImplementedError(
             f"{cfg.name}: vision inputs and M-RoPE are not ported yet: "
-            "ROADMAP A3")
+            "ROADMAP A4")
 
 
 # ---------------------------------------------------------------------------
@@ -113,16 +114,21 @@ def _angles_for(cfg: ModelConfig, seq: int, device,
 
 
 def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
-                causal: bool, attn_impl: str = "kernel") -> torch.Tensor:
+                causal: bool, attn_impl: str = "kernel"):
+    """Loop over the n_repeats stacked blocks; returns (h, aux_loss), the
+    aux loss summed over blocks."""
     remat = cfg.remat == "full" and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for layer in unstack_layers(params["blocks"], cfg.n_repeats):
         if remat:
-            h = checkpoint(blocks.block_fwd, layer, h, cfg, angles, causal,
-                           attn_impl=attn_impl, use_reentrant=False)
+            h, aux = checkpoint(blocks.block_fwd, layer, h, cfg, angles,
+                                causal, attn_impl=attn_impl,
+                                use_reentrant=False)
         else:
-            h = blocks.block_fwd(layer, h, cfg, angles, causal,
-                                 attn_impl=attn_impl)
-    return h
+            h, aux = blocks.block_fwd(layer, h, cfg, angles, causal,
+                                      attn_impl=attn_impl)
+        aux_total = aux_total + aux
+    return h, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -131,17 +137,17 @@ def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
 
 def forward_hidden(params: PyTree, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, attn_impl: str = "kernel"):
-    """Returns (final hidden states (B,S,D), aux_loss).  ``aux_loss`` is 0:
-    it comes from MoE routers, which are not ported."""
+    """Returns (final hidden states (B,S,D), aux_loss): the MoE routers'
+    load-balancing loss summed over layers, 0 without MoE."""
     _check_supported(cfg)
     if "vision_embeds" in batch or "enc_embeds" in batch:
         raise NotImplementedError(
-            "vision and encoder inputs are not ported yet: ROADMAP A3")
+            "vision and encoder inputs are not ported yet: ROADMAP A4")
     tokens = batch["tokens"]
     h = _embed_tokens(params, tokens)
     angles = _angles_for(cfg, tokens.shape[1], tokens.device)
-    h = _run_blocks(params, h, cfg, angles, causal=True, attn_impl=attn_impl)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _run_blocks(params, h, cfg, angles, causal=True,
+                         attn_impl=attn_impl)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
 
@@ -188,8 +194,9 @@ def lm_logits(params: PyTree, batch: Dict[str, torch.Tensor],
 def init_cache(cfg: ModelConfig, batch: int, seq: int,
                device=None) -> PyTree:
     """Zeroed decode caches: a tuple over pattern positions, each a dict of
-    tensors with a leading ``n_repeats`` axis, on ``device`` (CUDA unless
-    the caller asks for another)."""
+    tensors with a leading ``n_repeats`` axis (attention K/V ring buffers of
+    ``seq`` slots, Mamba, mLSTM and sLSTM states), on ``device`` (CUDA
+    unless the caller asks for another)."""
     _check_supported(cfg)
     device = resolve_device(device)
     out = []
@@ -205,8 +212,9 @@ def decode_step(params: PyTree, caches: PyTree, token: torch.Tensor,
                 pos: int, cfg: ModelConfig):
     """One decode step.  token (B,1) integer; pos the current length.
 
-    Returns (logits (B,1,V), caches).  The caches are ring buffers updated
-    in place (see ``attention.attention_decode``)."""
+    Returns (logits (B,1,V), caches).  The caches are updated in place
+    (attention's ring buffers, see ``attention.attention_decode``, and the
+    recurrent states), and the returned caches are the ones passed in."""
     h = _embed_tokens(params, token)
     angles = _angles_for(cfg, 1, token.device, position=int(pos))
     for i in range(cfg.n_repeats):

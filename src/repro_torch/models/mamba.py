@@ -1,0 +1,119 @@
+"""Mamba (selective SSM) mixer, as ``repro.models.mamba``.
+
+The recurrence h_t = a_t h_{t-1} + bx_t (diagonal A, state (B, d_inner,
+N) in float32) runs as a loop over time steps inside each chunk of
+``ssm_chunk`` tokens, and each chunk's states are contracted with C before
+the next chunk starts, so no (B, S, d_inner, N) state tensor is held.  The
+reference scans a chunk with ``jax.lax.associative_scan``; PyTorch has no
+stable associative scan, and a cumulative product of the decays in log
+space loses the state once the decay underflows across a chunk.  The loop
+is the exact recurrence (the one ``mamba_decode`` takes a step of), at one
+fused multiply-add launch per token.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import DTYPES, ParamSpec, PyTree
+
+
+def mamba_specs(cfg: ModelConfig) -> PyTree:
+    d, di, n, r, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state_dim,
+                      cfg.dt_rank, cfg.ssm_conv_width)
+    dt = DTYPES[cfg.param_dtype]
+    return {
+        "in_proj": ParamSpec((d, 2 * di), dt),
+        "conv_w": ParamSpec((w, di), dt, init_scale=0.5),
+        "conv_b": ParamSpec((di,), dt, init="zeros"),
+        "x_proj": ParamSpec((di, r + 2 * n), dt),
+        "dt_proj": ParamSpec((r, di), dt),
+        "dt_bias": ParamSpec((di,), dt, init="zeros"),
+        "A_log": ParamSpec((di, n), torch.float32, init="ones"),
+        "D": ParamSpec((di,), torch.float32, init="ones"),
+        "out_proj": ParamSpec((di, d), dt),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 init_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv. x (B,S,di), w (W,di). init_state (B,W-1,di).
+    Summed tap by tap in x's dtype, in the reference's order."""
+    width, s = w.shape[0], x.shape[1]
+    if init_state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    else:
+        pad = init_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, width):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b
+
+
+def _ssm_inputs(params: PyTree, x_conv: torch.Tensor, cfg: ModelConfig):
+    """x_conv (B,S,di) -> decay a (B,S,di,N), input bx (B,S,di,N) and C
+    (B,S,N), float32."""
+    n, r = cfg.ssm_state_dim, cfg.dt_rank
+    proj = torch.matmul(x_conv, params["x_proj"])  # (B,S,r+2N)
+    dt_in, b_in, c_in = torch.split(proj, [r, n, n], dim=-1)
+    dt = F.softplus(torch.matmul(dt_in, params["dt_proj"])
+                    + params["dt_bias"]).float()
+    a_mat = -torch.exp(params["A_log"])  # (di, N), negative
+    a = torch.exp(dt[..., None] * a_mat)  # decay in (0, 1]
+    bx = (dt * x_conv.float())[..., None] * b_in.float()[:, :, None, :]
+    return a, bx, c_in.float()
+
+
+def _gated_out(params: PyTree, y: torch.Tensor, x_conv: torch.Tensor,
+               z: torch.Tensor, dtype) -> torch.Tensor:
+    y = y + params["D"] * x_conv.float()
+    return torch.matmul(y.to(dtype) * F.silu(z), params["out_proj"])
+
+
+def mamba_fwd(params: PyTree, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D).  Chunked selective scan."""
+    b, s, _ = x.shape
+    xu, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    x_conv = F.silu(_causal_conv(xu, params["conv_w"], params["conv_b"]))
+    a, bx, c = _ssm_inputs(params, x_conv, cfg)
+    chunk = min(cfg.ssm_chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    h = x.new_zeros((b, cfg.d_inner, cfg.ssm_state_dim), dtype=torch.float32)
+    ys = []
+    for c0 in range(0, s, chunk):
+        hs = []
+        for t in range(c0, c0 + chunk):
+            h = torch.addcmul(bx[:, t], a[:, t], h)
+            hs.append(h)
+        ys.append(torch.einsum("btdn,btn->btd", torch.stack(hs, 1),
+                               c[:, c0:c0 + chunk]))
+    return _gated_out(params, torch.cat(ys, 1), x_conv, z, x.dtype)
+
+
+def mamba_decode(params: PyTree, x: torch.Tensor, conv_state: torch.Tensor,
+                 h_state: torch.Tensor, cfg: ModelConfig):
+    """One-token decode.  x (B,1,D); conv_state (B,W-1,di); h_state
+    (B,di,N).  Returns (out (B,1,D), conv_state, h_state), new tensors."""
+    xu, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    x_conv = F.silu(_causal_conv(xu, params["conv_w"], params["conv_b"],
+                                 init_state=conv_state))
+    new_conv_state = torch.cat([conv_state[:, 1:], xu.to(conv_state.dtype)],
+                               dim=1)
+    a, bx, c = _ssm_inputs(params, x_conv, cfg)
+    h = torch.addcmul(bx[:, 0], a[:, 0], h_state)  # (B,di,N)
+    y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None, :]
+    return _gated_out(params, y, x_conv, z, x.dtype), new_conv_state, h
+
+
+def mamba_cache_specs(cfg: ModelConfig, batch: int):
+    """Decode-state shapes and dtypes of one mamba layer."""
+    return {
+        "conv": ((batch, cfg.ssm_conv_width - 1, cfg.d_inner),
+                 DTYPES[cfg.dtype]),
+        "h": ((batch, cfg.d_inner, cfg.ssm_state_dim), torch.float32),
+    }

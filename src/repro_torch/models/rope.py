@@ -1,6 +1,6 @@
 """Rotary position embeddings (standard RoPE, half-split layout).
 
-M-RoPE (Qwen2-VL) waits for the vision slice of the port (ROADMAP A3):
+M-RoPE (Qwen2-VL) waits for the vision slice of the port (ROADMAP A4):
 ``repro_torch.models.lm`` raises for a config that asks for it.
 """
 from __future__ import annotations

@@ -1,0 +1,207 @@
+"""xLSTM blocks, as ``repro.models.xlstm``: mLSTM (matrix memory,
+chunkwise-parallel) and sLSTM (scalar memory with exponential gating,
+strictly sequential).
+
+* mLSTM: a loop over chunks of ``ssm_chunk`` tokens carrying the (B, H, hd,
+  hd) matrix memory and the (B, H, hd) normaliser; within a chunk, (T x T)
+  decay-weighted products.  The exponential input gate is bounded by a
+  softcap (``_IGATE_CAP``) instead of carrying a max-stabiliser through the
+  chunks; the forget gate is a sigmoid <= 1, so products only decay.  The
+  casts in the chunk body are the reference's, so bf16 rounds where it
+  rounds there.
+* sLSTM: its gates read h_{t-1} through block-diagonal recurrent weights,
+  so it has no parallel form; the port loops over time steps in Python, a
+  few small launches per token, with the m-stabilised update.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import DTYPES, ParamSpec, PyTree, softcap
+
+_IGATE_CAP = 10.0
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def mlstm_specs(cfg: ModelConfig) -> PyTree:
+    d, di = cfg.d_model, cfg.mlstm_inner
+    dt = DTYPES[cfg.param_dtype]
+    return {
+        "up": ParamSpec((d, 2 * di), dt),
+        "wq": ParamSpec((di, di), dt),
+        "wk": ParamSpec((di, di), dt),
+        "wv": ParamSpec((di, di), dt),
+        "w_gates": ParamSpec((di, 2 * cfg.n_heads), dt, init_scale=0.1),
+        "b_gates": ParamSpec((2 * cfg.n_heads,), torch.float32,
+                             init="zeros"),
+        "down": ParamSpec((di, d), dt),
+    }
+
+
+def _mlstm_qkv_gates(params: PyTree, x: torch.Tensor, cfg: ModelConfig):
+    di, h = cfg.mlstm_inner, cfg.n_heads
+    hd = di // h
+    u, z = torch.matmul(x, params["up"]).chunk(2, dim=-1)
+    b, s = u.shape[:2]
+    q = torch.matmul(u, params["wq"]).reshape(b, s, h, hd)
+    k = torch.matmul(u, params["wk"]).reshape(b, s, h, hd) / math.sqrt(hd)
+    v = torch.matmul(u, params["wv"]).reshape(b, s, h, hd)
+    gates = torch.matmul(u, params["w_gates"]).float() + params["b_gates"]
+    log_i = softcap(gates[..., :h], _IGATE_CAP)          # (B,S,H)
+    log_f = F.logsigmoid(gates[..., h:])                 # (B,S,H) <= 0
+    return q, k, v, log_i, log_f, z
+
+
+def _mlstm_chunk(qi, ki, vi, li, lf, c_state, n_state, out_dtype):
+    """One chunk: q/k/v (B,T,H,hd), gates (B,T,H) float32, carried c
+    (B,H,hd,hd) and n (B,H,hd) float32 -> (h (B,T,H,hd), c, n)."""
+    t = qi.shape[1]
+    fcum = torch.cumsum(lf, dim=1)  # (B,T,H) inclusive
+    ftot = fcum[:, -1]
+    # intra-chunk: weight_ts = exp(fcum_t - fcum_s + li_s) q_t.k_s, s <= t
+    rel = fcum[:, :, None, :] - fcum[:, None, :, :] + li[:, None, :, :]
+    mask = torch.ones((t, t), dtype=torch.bool, device=qi.device).tril()
+    decay = torch.exp(rel.masked_fill(~mask[None, :, :, None],
+                                      float("-inf")))  # (B,T,T,H)
+    scores = torch.einsum("bthd,bshd->btsh", qi, ki).float() * decay
+    h_intra = torch.einsum("btsh,bshd->bthd", scores.to(vi.dtype), vi)
+    n_intra = torch.einsum("btsh,bshd->bthd", decay.to(ki.dtype), ki)
+    # inter-chunk, from the carried state
+    qf = qi * torch.exp(fcum).to(qi.dtype)[..., None]
+    h_inter = torch.einsum("bthd,bhde->bthe", qf, c_state.to(qi.dtype))
+    n_inter = torch.einsum("bthd,bhd->bth", qf, n_state.to(qi.dtype))
+    # normaliser max(|n.q|, 1), n_t the intra sum plus the decayed carry
+    n_dot_q = (torch.einsum("bthd,bthd->bth", n_intra.float(), qi.float())
+               + n_inter.float())
+    denom = torch.clamp_min(n_dot_q.abs(), 1.0)[..., None]
+    h_out = (h_intra.float() + h_inter.float()) / denom
+    # the state at the chunk's end
+    wk = torch.exp(ftot[:, None, :] - fcum + li).to(ki.dtype)  # (B,T,H)
+    kw = ki * wk[..., None]
+    decay_all = torch.exp(ftot)
+    c_new = (c_state * decay_all[..., None, None]
+             + torch.einsum("bthd,bthe->bhde", kw, vi).float())
+    n_new = n_state * decay_all[..., None] + kw.sum(dim=1).float()
+    return h_out.to(out_dtype), c_new, n_new
+
+
+def mlstm_fwd(params: PyTree, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D), chunkwise-parallel mLSTM."""
+    b, s, _ = x.shape
+    h_heads = cfg.n_heads
+    di = cfg.mlstm_inner
+    hd = di // h_heads
+    q, k, v, log_i, log_f, z = _mlstm_qkv_gates(params, x, cfg)
+    chunk = min(cfg.ssm_chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    c_state = x.new_zeros((b, h_heads, hd, hd), dtype=torch.float32)
+    n_state = x.new_zeros((b, h_heads, hd), dtype=torch.float32)
+    hs = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        h_c, c_state, n_state = _mlstm_chunk(
+            q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], log_f[:, sl],
+            c_state, n_state, x.dtype)
+        hs.append(h_c)
+    out = torch.cat(hs, dim=1).reshape(b, s, di) * F.silu(z)
+    return torch.matmul(out, params["down"])
+
+
+def mlstm_decode(params: PyTree, x: torch.Tensor, c_state: torch.Tensor,
+                 n_state: torch.Tensor, cfg: ModelConfig):
+    """One-token mLSTM step. c (B,H,hd,hd), n (B,H,hd) float32.  Returns
+    (out (B,1,D), c, n), new tensors."""
+    b = x.shape[0]
+    di = cfg.mlstm_inner
+    q, k, v, log_i, log_f, z = _mlstm_qkv_gates(params, x, cfg)
+    i_g = torch.exp(log_i[:, 0])[..., None]  # (B,H,1)
+    f_g = torch.exp(log_f[:, 0])[..., None]
+    ki = k[:, 0] * i_g.to(k.dtype)
+    c_new = (c_state * f_g[..., None]
+             + torch.einsum("bhd,bhe->bhde", ki, v[:, 0]).float())
+    n_new = n_state * f_g + ki.float()
+    qf = q[:, 0].float()
+    h_num = torch.einsum("bhd,bhde->bhe", qf, c_new)
+    denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", n_new, qf).abs(),
+                            1.0)
+    h_out = (h_num / denom[..., None]).reshape(b, 1, di).to(x.dtype)
+    out = h_out * F.silu(z)
+    return torch.matmul(out, params["down"]), c_new, n_new
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def slstm_specs(cfg: ModelConfig) -> PyTree:
+    d = cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    p = int(d * cfg.xlstm_slstm_proj)
+    dt = DTYPES[cfg.param_dtype]
+    return {
+        "w_in": ParamSpec((d, 4 * d), dt),           # z, i, f, o inputs
+        "r": ParamSpec((4, h, hd, hd), dt, init_scale=0.5),  # block-diag
+        "bias": ParamSpec((4 * d,), torch.float32, init="zeros"),
+        "up": ParamSpec((d, 2 * p), dt),
+        "down": ParamSpec((p, d), dt),
+    }
+
+
+def _slstm_step(params: PyTree, cfg: ModelConfig, carry, x_t):
+    """carry: (c, n, m, h) each (B,D) float32; x_t: W_in x (B,4D) float32."""
+    c, n, m, h = carry
+    d = cfg.d_model
+    hh = cfg.n_heads
+    b = c.shape[0]
+    hr = h.reshape(b, hh, d // hh)
+    rec = torch.einsum("bhd,ghde->bghe", hr.to(params["r"].dtype),
+                       params["r"]).reshape(b, 4 * d)
+    pre = x_t + rec.float() + params["bias"]
+    z_pre, i_pre, f_pre, o_pre = pre.chunk(4, dim=-1)
+    z = torch.tanh(z_pre)
+    o = torch.sigmoid(o_pre)
+    log_i = softcap(i_pre, _IGATE_CAP)
+    log_f = F.logsigmoid(f_pre)
+    m_new = torch.maximum(log_f + m, log_i)
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.exp(log_f + m - m_new)
+    c_new = f_s * c + i_s * z
+    n_new = f_s * n + i_s
+    h_new = o * c_new / torch.clamp_min(n_new, 1e-6)
+    return (c_new, n_new, m_new, h_new), h_new
+
+
+def _slstm_out(params: PyTree, h: torch.Tensor) -> torch.Tensor:
+    u, g = torch.matmul(h, params["up"]).chunk(2, dim=-1)
+    return torch.matmul(u * F.gelu(g, approximate="tanh"), params["down"])
+
+
+def slstm_fwd(params: PyTree, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D): a loop over time steps, then the up/down
+    projection (GELU, tanh form: ``jax.nn.gelu``'s default)."""
+    b, s, d = x.shape
+    x_in = torch.matmul(x, params["w_in"]).float()  # (B,S,4D)
+    carry = tuple(x.new_zeros((b, d), dtype=torch.float32) for _ in range(4))
+    hs = []
+    for t in range(s):
+        carry, h_t = _slstm_step(params, cfg, carry, x_in[:, t])
+        hs.append(h_t)
+    return _slstm_out(params, torch.stack(hs, dim=1).to(x.dtype))
+
+
+def slstm_decode(params: PyTree, x: torch.Tensor, state, cfg: ModelConfig):
+    """One-token sLSTM step; state = (c, n, m, h) each (B,D) float32.
+    Returns (out (B,1,D), state), new tensors."""
+    x_in = torch.matmul(x[:, 0], params["w_in"]).float()
+    state, h = _slstm_step(params, cfg, state, x_in)
+    return _slstm_out(params, h[:, None, :].to(x.dtype)), state

@@ -463,3 +463,82 @@ def test_served_proxies_on_the_card_match_the_host(cuda, tmp_path):
                                          idx.topk_ids, idx.topk_d2)
     np.testing.assert_allclose(eng.proxy_scores("score_count"), want,
                                rtol=1e-5, atol=1e-6)
+
+
+def _tree_to(tree, dev):
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda a: a.to(dev), tree)
+
+
+@pytest.mark.parametrize("mixer,group", [("moe", 32), ("moe", 128),
+                                         ("mamba", 0), ("mlstm", 0)])
+def test_mixer_on_the_card_matches_the_cpu(cuda, mixer, group):
+    """moe_fwd (dropless groups of 32, and one group of 128 that drops
+    choices), mamba_fwd and mlstm_fwd on the card against the CPU from the
+    same seeded float32 weights and inputs (TF32 off): outputs within
+    1e-4, the MoE aux loss within 1e-5 relative and the same dropped
+    choices."""
+    import dataclasses
+
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, mamba, moe, xlstm
+    arch = {"moe": "olmoe-1b-7b", "mamba": "jamba-1.5-large-398b",
+            "mlstm": "xlstm-350m"}[mixer]
+    cfg = get_config(arch).smoke()
+    if group:
+        cfg = dataclasses.replace(cfg, moe_group_size=group)
+    specs, fwd = {"moe": (moe.moe_specs, moe.moe_fwd),
+                  "mamba": (mamba.mamba_specs, mamba.mamba_fwd),
+                  "mlstm": (xlstm.mlstm_specs, xlstm.mlstm_fwd)}[mixer]
+    params = common.init_params(specs(cfg), torch.Generator().manual_seed(0),
+                                device="cpu")
+    if mixer == "moe":
+        params["router"][:, 0] += 0.4            # skewed: some experts fill
+    x = torch.randn(2, 128, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)) * 0.5
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    route, out = moe._route, []
+
+    def counting(params, xg, cfg, cap):
+        # the dropped (token, choice) pairs: those routed less those kept
+        dispatch, combine, aux = route(params, xg, cfg, cap)
+        drops.append(xg.shape[0] * xg.shape[1] * cfg.top_k
+                     - int(dispatch.sum(dtype=torch.float32)))
+        return dispatch, combine, aux
+
+    try:
+        for dev in ("cpu", cuda):
+            drops = []
+            with mock.patch.object(moe, "_route", counting):
+                y = fwd(_tree_to(params, dev), x.to(dev), cfg)
+            out.append((y, sum(drops)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (y0, d0), (y1, d1) = out
+    assert d0 == d1 and (d0 > 0) == (group == 128)
+    if mixer == "moe":
+        assert float(y1[1]) == pytest.approx(float(y0[1]), rel=1e-5)
+        y0, y1 = y0[0], y1[0]
+    assert y1.device.type == torch.device(cuda).type
+    torch.testing.assert_close(y1.cpu(), y0, rtol=1e-4, atol=1e-4)
+
+
+def test_top_k_ties_route_alike_on_the_card(cuda):
+    """bf16-rounded router logits with planted ties: the card's
+    _top_k_gating gives the CPU's indices in the CPU's order (largest
+    first, ties lowest index first, as jax.lax.top_k)."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.randn(4096, 128, generator=gen)
+    pick = torch.randint(0, 128, (4096, 16), generator=gen)
+    logits.scatter_(1, pick, logits.gather(1, pick[:, :1]).expand(-1, 16))
+    logits[0] = 0.5
+    logits = logits.bfloat16().float()
+    for k in (1, 2, 8):
+        w0, i0 = moe._top_k_gating(logits, k)
+        w1, i1 = moe._top_k_gating(logits.to(cuda), k)
+        assert torch.equal(i1.cpu(), i0)
+        torch.testing.assert_close(w1.cpu(), w0, rtol=1e-6, atol=1e-7)

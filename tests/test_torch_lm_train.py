@@ -75,20 +75,25 @@ def _names_jax(tree):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "llama3.2-1b",
-                                  "qwen3-1.7b"])
+                                  "qwen3-1.7b", "olmoe-1b-7b"])
 def test_lm_loss_and_grads_match_jax(arch):
     """h2o-danube at S = 128 so that its smoke window of 64 bites; llama
-    (tied embeddings) and qwen3 (qk-norm) for the other branches."""
+    (tied embeddings) and qwen3 (qk-norm) for the other branches; olmoe for
+    MoE: its routers' aux loss in the loss and in the metrics, and every
+    leaf's gradient, the routers' included."""
     cfg_j, pj, cfg, pt = _model(arch)
     bj, bt = _batch(cfg, 2, 128, seed=1)
-    (want, mj), gj = jax.value_and_grad(
-        lambda p: jax_lm.lm_loss(p, bj, cfg_j), has_aux=True)(pj)
+    (want, mj), gj = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm.lm_loss(p, bj, cfg_j), has_aux=True))(pj)
     leaves = tree_leaves(pt)
     for p in leaves:
         p.requires_grad_(True)
     got, mt = lm.lm_loss(pt, bt, cfg)
     grads = torch.autograd.grad(got, leaves)
     assert float(got.detach()) == pytest.approx(float(want), rel=1e-5)
+    aux = float(mt["aux_loss"].detach())
+    assert aux == pytest.approx(float(mj["aux_loss"]), rel=1e-5)
+    assert (aux > 0) == (arch == "olmoe-1b-7b")
     assert float(mt["tokens"]) == float(mj["tokens"]) == 2 * 128 - 3
     names = [n for n, _ in tree_leaves_with_names(pt)]
     assert names == _names_jax(pj)
@@ -119,6 +124,37 @@ def test_train_step_matches_jax(microbatches):
     for name, a, b in zip(_names_jax(pj), tree_leaves(pt),
                           jax.tree.leaves(pj)):
         _assert_adam_close(a.detach().numpy(), np.asarray(b), lr_sum, name)
+
+
+def test_moe_train_step_matches_jax():
+    """make_train_step on olmoe's smoke config against the JAX package's
+    jitted step: loss (with the routers' aux loss), grad norm and lr each
+    step, then every leaf; the routers move."""
+    cfg_j, pj, cfg, pt = _model("olmoe-1b-7b", seed=6)
+    router0 = [b["moe"]["router"].clone() for b in pt["blocks"]]
+    opt_kw = dict(peak_lr=3e-3, min_lr=3e-4, warmup_steps=2, total_steps=5)
+    opt_j, opt = jax_adamw.OptimizerConfig(**opt_kw), \
+        adamw.OptimizerConfig(**opt_kw)
+    sj, st = jax_adamw.init_opt_state(pj, opt_j), adamw.init_opt_state(pt, opt)
+    step_j = jax.jit(jax_train_step(cfg_j, opt_j))
+    step = make_train_step(cfg, opt)
+    for i in range(3):
+        bj, bt = _batch(cfg, 2, 64, seed=30 + i)
+        pj, sj, mj = step_j(pj, sj, bj)
+        pt, st, mt = step(pt, st, bt)
+        assert float(mt["loss"]) == pytest.approx(float(mj["loss"]), rel=1e-4)
+        assert float(mt["aux_loss"]) == pytest.approx(float(mj["aux_loss"]),
+                                                      rel=1e-4)
+        assert float(mt["aux_loss"]) > 0
+        assert float(mt["grad_norm"]) == pytest.approx(
+            float(mj["grad_norm"]), rel=1e-4)
+    lr_sum = sum(float(jax_adamw.schedule(opt_j, jnp.int32(i)))
+                 for i in (1, 2, 3))
+    for name, a, b in zip(_names_jax(pj), tree_leaves(pt),
+                          jax.tree.leaves(pj)):
+        _assert_adam_close(a.detach().numpy(), np.asarray(b), lr_sum, name)
+    for b, r0 in zip(pt["blocks"], router0):
+        assert not torch.equal(b["moe"]["router"], r0)
 
 
 def _assert_adam_close(got, want, lr_sum, name):
@@ -187,6 +223,85 @@ def test_bfloat16_embedding_gradient_sums_in_float32():
     torch.testing.assert_close(out, table[tokens], rtol=0, atol=0)
     assert got.dtype == torch.bfloat16
     assert float((got.double() - exact).norm() / exact.norm()) <= 2 ** -8
+
+
+def test_bfloat16_embedding_gradient_against_the_jax_package(monkeypatch):
+    """The embedding gradient of a bf16 model in both packages on the same
+    weights and tokens, each beside its own float32 gradient: h2o-danube's
+    layout at d 256 and its vocabulary of 32,000, 256 tokens of which ~80%
+    are token 1 (a frequent token's row sums hundreds of contributions, as
+    token 1 does in the card's lm_train batch).  Each element's error is
+    measured against its row's noise scale, sqrt(sum over the token's
+    occurrences of the mean square of the float32 per-occurrence gradient).
+
+    The JAX package's gather transposes to a bf16 scatter-add, whose
+    running sum stalls: its relative L2 distance from float32 exceeds 2^-6
+    and elements of large gradient (>= 0.1 of the table's RMS, the card
+    check's rule) lie further than half their row's noise scale from
+    float32.  The port sums in float32: under 2^-6 and no such element.
+    Elements of the other sign occur in both packages (here 2 in the port
+    and 1 in the JAX package), all at the rounding floor: |float32
+    gradient| within 2^-4 of the row's noise scale, where the bf16 backward
+    through the layers (~2^-8 of that scale per element) decides the
+    sign."""
+    over = dict(d_model=256, d_ff=512, vocab_size=32000, dtype="bfloat16",
+                param_dtype="bfloat16")
+    cfg_j, pj, cfg, pt = _model("h2o-danube-3-4b", seed=0, **over)
+    f32 = dict(dtype="float32", param_dtype="float32")
+    cfg_j32, cfg32 = (dataclasses.replace(c, **f32) for c in (cfg_j, cfg))
+    rng = np.random.default_rng(0)
+    toks = np.where(rng.random((1, 257)) < 0.8, 1,
+                    rng.integers(2, 32000, (1, 257)))
+    bj = {"tokens": jnp.asarray(toks[:, :-1]),
+          "targets": jnp.asarray(toks[:, 1:])}
+    bt = {k: torch.from_numpy(np.array(v)).long() for k, v in bj.items()}
+    grad_j = jax.jit(jax.grad(lambda p, c: jax_lm.lm_loss(p, bj, c)[0]),
+                     static_argnums=1)
+    looked_up = {}
+    embed_tokens = lm._embed_tokens
+
+    def capture(params, tokens):
+        looked_up["h"] = embed_tokens(params, tokens)
+        return looked_up["h"]
+
+    monkeypatch.setattr(lm, "_embed_tokens", capture)
+
+    def grad_t(params, c):
+        """(embedding gradient, per-occurrence gradient (S, D))."""
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        loss, _ = lm.lm_loss(params, bt, c)
+        g, g_occ = torch.autograd.grad(loss, [params["embed"],
+                                              looked_up["h"]])
+        return g.float().numpy(), g_occ[0].float().numpy()
+
+    g = {"jax": np.asarray(grad_j(pj, cfg_j)["embed"], np.float32),
+         "port": grad_t(pt, cfg)[0]}
+    g32_port, g_occ = grad_t(lm.params_from_jax(jax.tree.map(
+        lambda a: np.asarray(a, np.float32), pj)), cfg32)
+    g32 = {"jax": np.asarray(grad_j(jax.tree.map(
+        lambda a: a.astype(jnp.float32), pj), cfg_j32)["embed"]),
+        "port": g32_port}
+    np.testing.assert_allclose(g32["port"], g32["jax"], rtol=1e-4, atol=1e-6)
+    row_sq = np.zeros(cfg.padded_vocab)
+    np.add.at(row_sq, toks[0, :-1], np.mean(g_occ.astype(np.float64) ** 2,
+                                             axis=1))
+    noise = np.sqrt(row_sq)[:, None]
+    flips, far, rel = {}, {}, {}
+    for pkg in g:
+        a = np.abs(g32[pkg])
+        large = a >= 0.1 * np.sqrt(np.mean(a * a))
+        flip = large & (np.sign(g[pkg]) != np.sign(g32[pkg]))
+        flips[pkg] = int(flip.sum())
+        assert np.all(a[flip] <= 2 ** -4 * np.broadcast_to(noise, a.shape)[
+            flip]), pkg
+        far[pkg] = int((large & (np.abs(g[pkg] - g32[pkg])
+                                 > 0.5 * noise)).sum())
+        rel[pkg] = float(np.linalg.norm(g[pkg] - g32[pkg])
+                         / np.linalg.norm(g32[pkg]))
+    assert flips["port"] > 0 and flips["jax"] > 0, flips
+    assert far["port"] == 0 and far["jax"] > 0, far
+    assert rel["port"] < 2 ** -6 < rel["jax"], rel
 
 
 def test_token_dataset_batches_identical():

@@ -247,6 +247,21 @@ with tempfile.TemporaryDirectory() as d:
     srv.shutdown()
 assert population_triplet_loss(np.eye(3), lambda i, j: float(i != j),
                                np.arange(3), 0.5, 1.0, n_samples=5) >= 0
+# the MoE, Mamba and xLSTM models: prefill, replay decode, a train step
+from repro_torch.models import mamba, moe, xlstm
+from repro_torch.optim.adamw import OptimizerConfig, init_opt_state
+from repro_torch.train.steps import make_train_step
+for arch in ("olmoe-1b-7b", "xlstm-350m", "jamba-1.5-large-398b"):
+    cfg = get_config(arch).smoke()
+    p = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert make_prefill_step(cfg)(p, {"tokens": toks[:, :32]}).shape == \
+        (1, 32, cfg.padded_vocab)
+    assert serve_lm.serve(p, cfg, toks[:, :4], decode_steps=2)[
+        "generated"].shape == (1, 2)
+opt = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=2)
+_, _, m = make_train_step(cfg, opt)(p, init_opt_state(p, opt), {
+    "tokens": toks[:, :16], "targets": toks[:, 1:17]})
+assert float(m["aux_loss"]) > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
