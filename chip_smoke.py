@@ -1,9 +1,9 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full width: 1M frames, 7,000 reps,
-                                     # h2o-danube-3-4b and olmoe-1b-7b on a
-                                     # 32,768-token prompt, qwen3-moe-30b-a3b
-                                     # on 8,192
+                                     # h2o-danube-3-4b, olmoe-1b-7b and
+                                     # qwen2-vl-7b on a 32,768-token
+                                     # prompt, qwen3-moe-30b-a3b on 8,192
 
 1. Prints the card (nvidia-smi), builds every CUDA kernel of the port from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -75,6 +75,16 @@
    against it) and moe_prefill_qwen3 (qwen3-moe-30b-a3b, all 48 layers,
    56.9 GiB of bf16 weights, one 8,192-token prompt: 48 launches, all
    tc); then the kernel alone at both prefill shapes.
+10. qwen2-vl-7b at its published widths (seeded bf16 weights, 256 seeded
+   patch embeddings merged over the first positions, M-RoPE): the kernel
+   route against the plain route at 8,192 tokens with the vision prefix
+   (compare_routes); vlm_prefill (one 32,768-token prompt through
+   ``make_prefill_step``: 28 launches, all tc, at a GQA group of 7);
+   vlm_decode (16 greedy steps at batch 4 after 4,096 seeded cache slots;
+   the card's replay, a 4 x 24 replay prefill and those steps, against
+   the CPU's with the depth cut to 2 layers in float32); then the kernel
+   alone at the prefill's shape, heads 0, 6, 7, 20, 21 and 27 each held
+   against the plain version run on that head and its KV head.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -698,12 +708,15 @@ def check_flash_attention(dev, label: str, b: int, s: int, h: int, hk: int,
 
 
 def time_flash_full(dev, cfg, seq: int, iters: int = 2,
-                    plain: bool = False):
+                    plain: bool = False, heads=()):
     """One kernel launch at a full-width prefill layer's shape, beside
     ``scaled_dot_product_attention``; with ``plain`` (only where its
     (H, S, S) float32 scores fit) the plain version is timed and the
     kernel's output held against it as ``check_flash_attention`` holds it
-    (``allowed_error``, with the P-rounding witness on the tc path)."""
+    (``allowed_error``, with the P-rounding witness on the tc path).  With
+    ``heads`` (where they do not fit), each of those query heads of the
+    kernel's output is held the same way against the plain version run on
+    that head and its KV head alone, and that one-head run is timed."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_route)
     from repro_torch.kernels.flash_attention.ref import (allowed_error,
@@ -718,7 +731,8 @@ def time_flash_full(dev, cfg, seq: int, iters: int = 2,
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
                                          window=window), iters)
     lib_ms = sdpa_ms(q, k, v, True, window, iters)
-    plain_ms = err = outside = None
+    plain_ms = plain_head_ms = err = outside = None
+    held = []
     if plain:
         plain_ms = time_ms(lambda: flash_attention_ref(
             q, k, v, causal=True, window=window), 1)
@@ -728,20 +742,48 @@ def time_flash_full(dev, cfg, seq: int, iters: int = 2,
         diff = (got.float() - want).abs()
         err, outside = float(diff.max()), int((diff > allowed).sum())
         del got, want, allowed, diff
+    if heads:
+        got = flash_attention(q, k, v, causal=True, window=window)
+        for hi in heads:
+            kv = hi // (h // hk)
+            one = (q[:, :, hi:hi + 1], k[:, :, kv:kv + 1], v[:, :, kv:kv + 1])
+            want, allowed = allowed_error(*one, True, window,
+                                          round_p=path == "tc")
+            diff = (got[:, :, hi:hi + 1].float() - want).abs()
+            held.append({"head": hi, "kv_head": kv,
+                         "max_abs_err": float(diff.max()),
+                         "outside_tol": int((diff > allowed).sum())})
+            del want, allowed, diff
+        one = (q[:, :, :1], k[:, :, :1], v[:, :, :1])
+        plain_head_ms = time_ms(lambda: flash_attention_ref(
+            *one, causal=True, window=window), 1)
+        del got, one
+        err = max(x["max_abs_err"] for x in held)
+        outside = sum(x["outside_tol"] for x in held)
     bnd, by, flops = attention_bound(1, seq, seq, h, hk, hd, torch.bfloat16,
                                      True, window)
+    if plain_ms is not None:
+        against = (f"{plain_ms:.3f} ms; against it max_abs_err {err:.3g}, "
+                   f"{outside} outside the tolerance")
+    elif held:
+        against = (f"not measured (all heads' scores do not fit), one head "
+                   f"alone {plain_head_ms:.3f} ms; heads (kv head) "
+                   + ", ".join(f"{x['head']} ({x['kv_head']})" for x in held)
+                   + f" held against it: max_abs_err {err:.3g}, {outside} "
+                   f"outside the tolerance")
+    else:
+        against = "not measured"
     log(f"flash_attention[{cfg.name} prefill {seq}] {path} q {(1, seq, h, hd)}"
         f" k {(1, seq, hk, hd)} one launch {ms:.3f} ms ({flops / ms / 1e9:.1f}"
-        f" TFLOP/s), library {lib_ms:.3f} ms, plain "
-        + ("not measured" if plain_ms is None else
-           f"{plain_ms:.3f} ms; against it max_abs_err {err:.3g}, {outside} "
-           f"outside the tolerance")
-        + f", bound {bnd:.4f} ms ({by})")
-    assert not outside, (cfg.name, seq, err, outside)
+        f" TFLOP/s), library {lib_ms:.3f} ms, plain {against}, bound "
+        f"{bnd:.4f} ms ({by})")
+    assert not outside, (cfg.name, seq, err, outside, held)
     return {"model": cfg.name, "seq": seq, "shape": [1, seq, seq, h, hk, hd],
             "path": path, "ms": ms, "library_ms": lib_ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "max_abs_err": err, "outside_tol": outside}
+            "max_abs_err": err, "outside_tol": outside,
+            **({"heads_held": held, "plain_head_ms": plain_head_ms}
+               if held else {})}
 
 
 # Logits of the bf16 model along two attention routes: one bf16 ulp (2^-8
@@ -853,18 +895,19 @@ def routing_agrees(a: list, b: list, shape) -> torch.Tensor:
     return same.reshape(shape)
 
 
-def compare_routes(cfg, params, tokens, prefill, prefill_plain,
+def compare_routes(cfg, params, short: dict, prefill, prefill_plain,
                    label: str = "lm_prefill") -> dict:
-    """Kernel route against plain route over ``tokens``: in bf16 as served,
-    with the keys-reversed plain route as the witness of rounding alone, and
-    with the same weights cast to float32.  A MoE model is held by
-    the routed rule (above), its flips counted."""
+    """Kernel route against plain route over the batch ``short`` (tokens,
+    and a vision model's vision_embeds): in bf16 as served, with the
+    keys-reversed plain route as the witness of rounding alone, and with
+    the same weights cast to float32.  A MoE model is held by the routed
+    rule (above), its flips counted."""
     from unittest import mock
 
     from repro_torch.models import attention
     from repro_torch.models.common import tree_map
     routed = any(sp.mlp == "moe" for sp in cfg.pattern)
-    short = {"tokens": tokens}
+    tokens = short["tokens"]
 
     def run(step, p, pin=None):
         if not routed:
@@ -956,8 +999,8 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
     # the kernel route against the plain route on a prompt longer than the
     # window, so that its mask and the key-tile skipping take effect (this
     # also warms cuBLAS and the kernel up before the timed prefill)
-    compare = compare_routes(cfg, params, tokens[:, :compare_len], prefill,
-                             prefill_plain)
+    compare = compare_routes(cfg, params, {"tokens": tokens[:, :compare_len]},
+                             prefill, prefill_plain)
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -966,8 +1009,10 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
     prefill_launches = flash_attention.launches
     prefill_paths = dict(flash_attention.launches_by_path)
     prefill_s = ph.seconds
-    finite = bool(torch.isfinite(logits).all())
+    # the peak before the check: isfinite's temporaries (|x| and two masks)
+    # would add twice the logits' size
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = bool(torch.isfinite(logits).all())
     log(f"phase lm_prefill: {prefill_len} tokens in {ph.seconds:.3f} s "
         f"({prefill_len / ph.seconds:.1f} tok/s), logits "
         f"{tuple(logits.shape)} finite={finite}, flash launches "
@@ -1915,7 +1960,7 @@ def moe_breakdown(cfg, params, h, iters: int = 3) -> dict:
     dispatch, combine, _ = moe._route(p, xg, cfg, cap)
     xe = torch.einsum("gtd,gtec->gecd", xg, dispatch)
     ye = moe._experts(p, xe)
-    angles = _angles_for(cfg, s, h.device)
+    angles = _angles_for(cfg, b, s, h.device)
     with torch.no_grad():
         out = {
             "route": time_ms(lambda: moe._route(p, xg, cfg, cap), iters),
@@ -1978,7 +2023,7 @@ def run_moe_prefill(dev, cfg, seq: int, compare_len: int, profile,
     out = {"model": cfg.name, "tokens": seq}
     if compare_len:
         out["compare"] = compare_routes(
-            cfg, params, tokens[:, :compare_len], prefill,
+            cfg, params, {"tokens": tokens[:, :compare_len]}, prefill,
             make_prefill_step(cfg, attn_impl="plain"), label=label)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1988,8 +2033,8 @@ def run_moe_prefill(dev, cfg, seq: int, compare_len: int, profile,
     n_moe = len(dropped)
     paths = dict(flash_attention.launches_by_path)
     launches = flash_attention.launches
+    peak = peak_gib()                       # before isfinite's temporaries
     finite = bool(torch.isfinite(logits).all())
-    peak = peak_gib()
     pairs = seq * cfg.top_k * n_moe
     log(f"phase {label}: {cfg.name}, {seq} tokens in {ph.seconds:.3f} s "
         f"({seq / ph.seconds:.1f} tok/s), logits {tuple(logits.shape)} "
@@ -2170,8 +2215,8 @@ def run_xlstm(dev, seq: int, profile) -> dict:
     with Phase("xlstm", profile) as ph:
         logits = prefill(params, {"tokens": tokens})
     launches = flash_attention.launches
+    peak = peak_gib()                       # before isfinite's temporaries
     finite = bool(torch.isfinite(logits).all())
-    peak = peak_gib()
     del logits
     n_slstm = cfg.n_repeats * sum(sp.mixer == "slstm" for sp in cfg.pattern)
     pos = next(i for i, sp in enumerate(cfg.pattern) if sp.mixer == "slstm")
@@ -2302,6 +2347,183 @@ def run_mixers(dev, prefill_len: int, compare_len: int, profile) -> dict:
     # the kernel alone at the two models' prefill shapes
     out["flash_full"] = [time_flash_full(dev, olmoe, prefill_len),
                          time_flash_full(dev, qwen3, QWEN3_LEN, plain=True)]
+    free_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# qwen2-vl-7b: M-RoPE and the vision prefix
+# ---------------------------------------------------------------------------
+
+# the card's decode replay against the CPU's: the model's widths with its
+# depth cut to VLM_REPLAY_DEPTH layers and the weights cast to float32 (the
+# whole model in float32, 30.5 GB, would take the host seconds a step to
+# read); a replay prefill of VLM_REPLAY_LEN tokens inside the vision prefix
+# (negative M-RoPE decode positions), then the decode steps over the
+# seeded caches
+VLM_REPLAY_DEPTH, VLM_REPLAY_LEN = 2, 24
+# the kernel at the prefill's shape, held head by head: the edges of the
+# GQA groups of 7 at 28 heads on 4 (kv heads 0, 0, 1, 2, 3, 3)
+VLM_HELD_HEADS = (0, 6, 7, 20, 21, 27)
+
+
+def vlm_replay(params, cfg, prompts, vision, caches, toks, ctx: int):
+    """Logits of a replay ``lm.prefill`` of ``prompts`` (with ``vision``
+    in the batch, which the replay ignores, as the reference's does) and
+    of one decode step per token of ``toks`` at positions ``ctx``.. over
+    ``caches`` (updated in place)."""
+    from repro_torch.models import lm
+    with torch.no_grad():
+        replay, _ = lm.prefill(params, {"tokens": prompts,
+                                        "vision_embeds": vision}, cfg,
+                               prompts.shape[1])
+        steps = []
+        for t, tok in enumerate(toks):
+            lg, caches = lm.decode_step(params, caches, tok, ctx + t, cfg)
+            steps.append(lg[:, 0])
+    return replay, torch.stack(steps, 1)
+
+
+def run_vlm(dev, prefill_len: int, compare_len: int, profile) -> dict:
+    """vlm_prefill and vlm_decode at qwen2-vl-7b's published widths (seeded
+    bf16 weights, a 256-patch vision prefix); then the kernel alone at the
+    prefill's shape, held head by head against the plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config("qwen2-vl-7b")
+    n_attn = cfg.n_repeats * sum(sp.mixer == "attn" for sp in cfg.pattern)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, g, device=dev)
+    torch.cuda.synchronize()
+    log(f"vlm init: {cfg.name}, {cfg.param_count() / 1e9:.3f}B parameters "
+        f"(bf16, seeded), {time.perf_counter() - t0:.2f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prefill = make_prefill_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prefill_len), device=dev,
+                           generator=g)
+    # the stubbed frontend's output: seeded patch embeddings at the
+    # embedding rows' scale (init draws normal / sqrt(fan_in), fan_in the
+    # padded vocabulary)
+    vision = torch.randn(1, cfg.vision_tokens, cfg.d_model, device=dev,
+                         generator=g) / math.sqrt(cfg.padded_vocab)
+    vision = vision.bfloat16()
+    out = {"model": cfg.name, "tokens": prefill_len,
+           "vision_tokens": cfg.vision_tokens}
+    # the kernel route against the plain route, the vision prefix merged
+    # and on the M-RoPE grid (also warms cuBLAS and the kernel up)
+    out["compare"] = compare_routes(
+        cfg, params, {"tokens": tokens[:, :compare_len],
+                      "vision_embeds": vision}, prefill,
+        make_prefill_step(cfg, attn_impl="plain"), label="vlm_prefill")
+    free_card()
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("vlm_prefill", profile) as ph:
+        logits = prefill(params, {"tokens": tokens, "vision_embeds": vision})
+    launches = flash_attention.launches
+    paths = dict(flash_attention.launches_by_path)
+    peak = peak_gib()                       # before isfinite's temporaries
+    finite = bool(torch.isfinite(logits).all())
+    log(f"phase vlm_prefill: {cfg.name}, {prefill_len} tokens "
+        f"({cfg.vision_tokens} of them vision patches) in {ph.seconds:.3f} s "
+        f"({prefill_len / ph.seconds:.1f} tok/s), logits "
+        f"{tuple(logits.shape)} finite={finite}, flash launches {launches} "
+        f"{paths}, peak device memory {peak:.2f} GiB")
+    assert logits.shape == (1, prefill_len, cfg.padded_vocab), logits.shape
+    assert finite
+    assert launches == n_attn, (launches, n_attn)
+    assert paths == {"simt": 0, "tc": n_attn, "short": 0}, paths
+    del logits
+    free_card()
+    out.update(seconds=ph.seconds, tokens_s=prefill_len / ph.seconds,
+               launches=launches, launches_by_path=paths, peak_gib=peak)
+
+    # vlm_decode: 16 greedy steps at batch 4 after 4,096 seeded cache slots
+    # (M-RoPE decode positions 3,841..)
+    batch, ctx, steps = 4, 4096, 16
+    caches = lm.init_cache(cfg, batch, ctx + steps, device=dev)
+    for layer in caches:
+        for t in layer.values():
+            t.normal_(generator=g)
+    seeded = tree_map(lambda a: a[:VLM_REPLAY_DEPTH].float().cpu(), caches)
+    step = make_serve_step(cfg)
+    tok = torch.randint(1, cfg.vocab_size, (batch, 1), device=dev,
+                        generator=g)
+    fed = []
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("vlm_decode", profile) as ph:
+        for t in range(steps):
+            fed.append(tok)
+            lg, caches = step(params, caches, tok, ctx + t)
+            tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1)
+    dec_launches = flash_attention.launches
+    dec_finite = bool(torch.isfinite(lg).all())
+    dec_peak = peak_gib()
+    tok_s = batch * steps / ph.seconds
+    del caches, lg
+    log(f"phase vlm_decode: {steps} steps x batch {batch} at cache {ctx} "
+        f"(M-RoPE positions {ctx - cfg.vision_tokens + 1}..) in "
+        f"{ph.seconds:.3f} s ({tok_s:.1f} tok/s, "
+        f"{1e3 * ph.seconds / steps:.2f} ms per step), finite={dec_finite}, "
+        f"flash launches {dec_launches} (decode attention is plain, as the "
+        f"reference's); peak device memory {dec_peak:.2f} GiB")
+    assert dec_finite and dec_launches == 0
+
+    # the card's replay against the CPU's, depth cut, float32 (TF32 off)
+    rcfg = dataclasses.replace(cfg, n_layers=VLM_REPLAY_DEPTH,
+                               dtype="float32", param_dtype="float32")
+    cut = dict(params, blocks=tree_map(lambda a: a[:VLM_REPLAY_DEPTH],
+                                       params["blocks"]))
+    p32 = tree_map(lambda a: a.float(), cut)
+    del params, cut
+    free_card()
+    prompts = torch.randint(1, cfg.vocab_size, (batch, VLM_REPLAY_LEN),
+                            device=dev, generator=g)
+    fed = torch.stack(fed).cpu()
+    t0 = time.perf_counter()
+    card = vlm_replay(p32, rcfg, prompts, vision.expand(batch, -1, -1),
+                      tree_map(lambda a: a.to(dev), seeded), fed.to(dev), ctx)
+    card = [x.cpu() for x in card]
+    card_s = time.perf_counter() - t0
+    p32 = tree_map(lambda a: a.cpu(), p32)
+    free_card()
+    t0 = time.perf_counter()
+    host = vlm_replay(p32, rcfg, prompts.cpu(),
+                      vision.cpu().expand(batch, -1, -1), seeded, fed, ctx)
+    host_s = time.perf_counter() - t0
+    del p32, seeded
+    replay = {}
+    for name, a, b in zip(("prefill", "decode"), card, host):
+        mx, mean, top1 = logits_agreement(a, b, cfg.vocab_size)
+        replay[name] = {"max_abs": mx, "mean_abs": mean, "top1": top1}
+    log(f"vlm_decode replay, card vs CPU ({VLM_REPLAY_DEPTH} layers at full "
+        f"width, float32): prefill of {batch} x {VLM_REPLAY_LEN} (M-RoPE "
+        f"positions {1 - cfg.vision_tokens}.."
+        f"{VLM_REPLAY_LEN - cfg.vision_tokens}) max |d logits| "
+        f"{replay['prefill']['max_abs']:.4g}, mean "
+        f"{replay['prefill']['mean_abs']:.4g}; {steps} decode steps at cache "
+        f"{ctx} max |d logits| {replay['decode']['max_abs']:.4g}, mean "
+        f"{replay['decode']['mean_abs']:.4g} (<= {REPLAY_TOL}); card "
+        f"{card_s:.2f} s, CPU {host_s:.2f} s")
+    assert all(r["max_abs"] <= REPLAY_TOL for r in replay.values()), replay
+    out["decode"] = {"steps": steps, "batch": batch, "cache": ctx,
+                     "seconds": ph.seconds, "tok_s": tok_s,
+                     "launches": dec_launches, "peak_gib": dec_peak,
+                     "replay": replay, "replay_depth": VLM_REPLAY_DEPTH}
+    free_card()
+    # the kernel alone at the prefill's shape, held head by head
+    out["flash_full"] = time_flash_full(dev, cfg, prefill_len,
+                                        heads=VLM_HELD_HEADS)
     free_card()
     return out
 
@@ -2565,6 +2787,10 @@ def main(argv=None) -> None:
         "moe_prefill", "moe_decode", "xlstm", "moe_prefill_qwen3")}
     mixer_flash["moe_train"] = 0            # asserted in run_moe_train
     launches["flash_attention"] += sum(mixer_flash.values())
+    vlm = run_vlm(dev, args.prefill_len, args.compare_len, args.profile)
+    vlm_flash = {"vlm_prefill": vlm["launches"],
+                 "vlm_decode": vlm["decode"]["launches"]}
+    launches["flash_attention"] += sum(vlm_flash.values())
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
@@ -2576,6 +2802,7 @@ def main(argv=None) -> None:
     by_label = {r["label"]: r for r in flash}
     phase_paths = [mixers["moe_prefill"]["launches_by_path"],
                    mixers["moe_prefill_qwen3"]["launches_by_path"],
+                   vlm["launches_by_path"],
                    lm_out["prefill"]["launches_by_path"],
                    lm_out["serve"]["launches_by_path"],
                    lm_out["decode_window"]["launches_by_path"], emb_paths]
@@ -2588,13 +2815,14 @@ def main(argv=None) -> None:
                 "bound_by", "max_abs_err")}}
     paths["tc"]["prefill_full"] = flash_full
     paths["tc"]["prefill_full_moe"] = mixers["flash_full"]
+    paths["tc"]["prefill_full_vlm"] = vlm["flash_full"]
     paths["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
                           for fn, regs, spill in ptxas["flash_attention"]}
     a = by_label["a"]
     results.append({
         "name": "flash_attention", "max_abs_err": max(
             r["max_abs_err"] for r in flash + mixers["flash_full"]
-            if r["max_abs_err"] is not None),
+            + [vlm["flash_full"]] if r["max_abs_err"] is not None),
         **{k: a[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")},
         "paths": paths, "checks": flash,
@@ -2602,7 +2830,8 @@ def main(argv=None) -> None:
                               "lm_serve": lm_out["serve"]["launches"],
                               "lm_decode_window":
                                   lm_out["decode_window"]["launches"],
-                              "embedder": emb_launches, **mixer_flash},
+                              "embedder": emb_launches, **mixer_flash,
+                              **vlm_flash},
         "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
         "lm_decode_window": lm_out["decode_window"]})
     results[0]["launches_by_path"] = topk_paths
@@ -2625,6 +2854,7 @@ def main(argv=None) -> None:
         "tasti_t": tasti_t, "lm_train": lm_train,
         "lm_train_resilient": resilient}))
     log("mixer paths: " + json.dumps(mixers))
+    log("vlm paths: " + json.dumps(vlm))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,8 @@ The JAX package's XLA implementation of full-sequence attention
 (``blocked_attention``) is not copied: it computes the same function as the
 kernel's plain version, and the parity tests hold the port against it.  Not
 ported yet, each raising ``NotImplementedError``: the sequence-parallel
-``seq_dp`` paths (ROADMAP A4), the ``dus`` cache update and the two-tier
-decode cache (ROADMAP A3), and cross-attention (ROADMAP A3, encoder-decoder).
+``seq_dp`` paths (ROADMAP A6), the ``dus`` cache update and the two-tier
+decode cache (ROADMAP A5), and cross-attention (ROADMAP A4b, encoder-decoder).
 """
 from __future__ import annotations
 
@@ -49,15 +49,15 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.shard_strategy in ("seq_dp", "ep_seq"):
         raise NotImplementedError(
             f"shard_strategy={cfg.shard_strategy!r} (sequence-parallel "
-            "attention) is not ported yet: ROADMAP A4")
+            "attention) is not ported yet: ROADMAP A6")
     if cfg.decode_cache_update != "masked":
         raise NotImplementedError(
             f"decode_cache_update={cfg.decode_cache_update!r} is not ported "
-            "yet: ROADMAP A3")
+            "yet: ROADMAP A5")
     if cfg.decode_ring:
         raise NotImplementedError(
             "the two-tier decode cache (decode_ring > 0) is not ported yet: "
-            "ROADMAP A3")
+            "ROADMAP A5")
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ stacked parameters.
 
 Mixers ``attn``, ``mamba``, ``mlstm`` and ``slstm``; MLPs ``dense``,
 ``moe`` and ``none``.  Cross-attention comes with the encoder-decoder
-stack, which is not ported yet (ROADMAP A4; ``lm`` refuses it).
+stack, which is not ported yet (ROADMAP A4b; ``lm`` refuses it).
 """
 from __future__ import annotations
 

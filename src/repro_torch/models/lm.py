@@ -1,11 +1,12 @@
 """Unified decoder-only LM built from ``repro_torch.models.blocks``: dense,
-MoE, hybrid (Mamba + attention) and xLSTM models.
+MoE, hybrid (Mamba + attention), xLSTM and vision-language (qwen2-vl: M-RoPE
+and a prefix of precomputed patch embeddings) models.
 
 Parameters have the JAX package's layout: per-position trees stacked over
 ``n_repeats`` on a leading axis; the port loops over the repeats in Python
 (PyTorch runs eagerly; nothing needs ``lax.scan``).  No mesh constraints:
-the port runs on one device.  Vision inputs (qwen2-vl, M-RoPE) and the
-encoder-decoder stack (seamless) are not ported yet (ROADMAP A4) and raise.
+the port runs on one device.  The encoder-decoder stack (seamless) is not
+ported yet (ROADMAP A4b) and raises.
 
 ``lm_loss`` trains: with ``cfg.remat == "full"`` each block is
 rematerialised in the backward pass (``torch.utils.checkpoint``, the JAX
@@ -37,11 +38,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder stack is not ported yet: "
-            "ROADMAP A4")
-    if cfg.vision_tokens or cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: vision inputs and M-RoPE are not ported yet: "
-            "ROADMAP A4")
+            "ROADMAP A4b")
 
 
 # ---------------------------------------------------------------------------
@@ -103,14 +100,29 @@ def _embed_tokens(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
     return _EmbedLookup.apply(params["embed"], tokens)
 
 
-def _angles_for(cfg: ModelConfig, seq: int, device,
+def _angles_for(cfg: ModelConfig, batch: int, seq: int, device,
                 position: Optional[int] = None) -> torch.Tensor:
-    """RoPE angles (1, S, hd//2) for positions 0..S-1, or (1, 1, hd//2) for
-    the one decode ``position``."""
+    """RoPE angles for positions 0..S-1, or for the one decode ``position``
+    (S = 1): (1, S, hd//2), and with M-RoPE (B, S, hd//2).
+
+    M-RoPE, as the JAX package: the parallel forward puts the first
+    ``vision_tokens`` positions on the vision grid whether or not vision
+    embeddings are given; decode gives a token p = position - V + 1 on all
+    three axes, negative for a position inside the vision prefix."""
+    hd = cfg.resolved_head_dim
+    if cfg.mrope_sections:
+        if position is None:
+            pos3 = rope_lib.mrope_positions(batch, seq, cfg.vision_tokens,
+                                            cfg.vision_grid, device=device)
+        else:
+            p = torch.tensor([position - cfg.vision_tokens + 1],
+                             device=device)
+            pos3 = p.reshape(1, 1, 1).expand(3, batch, 1)
+        return rope_lib.mrope_angles(pos3, hd, cfg.rope_theta,
+                                     cfg.mrope_sections)
     pos = (torch.arange(seq, device=device) if position is None
            else torch.tensor([position], device=device))
-    return rope_lib.rope_angles(pos[None], cfg.resolved_head_dim,
-                                cfg.rope_theta)
+    return rope_lib.rope_angles(pos[None], hd, cfg.rope_theta)
 
 
 def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
@@ -131,6 +143,21 @@ def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
     return h, aux_total
 
 
+def _merge_vision(cfg: ModelConfig, h: torch.Tensor,
+                  vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Positions [0, V) of h take ``vision_embeds`` (B, V, D), cast to h's
+    dtype; the token ids there are ignored, and their embedding rows get
+    no gradient from them (a ``where``, as in the JAX package)."""
+    if not cfg.vision_tokens or vision_embeds is None:
+        return h
+    vt = cfg.vision_tokens
+    s = h.shape[1]
+    vis = torch.nn.functional.pad(vision_embeds.to(h.dtype),
+                                  (0, 0, 0, s - vt))
+    mask = (torch.arange(s, device=h.device) < vt)[None, :, None]
+    return torch.where(mask, vis, h)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -138,14 +165,18 @@ def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
 def forward_hidden(params: PyTree, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, attn_impl: str = "kernel"):
     """Returns (final hidden states (B,S,D), aux_loss): the MoE routers'
-    load-balancing loss summed over layers, 0 without MoE."""
+    load-balancing loss summed over layers, 0 without MoE.  batch: tokens
+    (B, S), and for a vision model optionally vision_embeds (B, V, D),
+    which replace the first V positions' token embeddings."""
     _check_supported(cfg)
-    if "vision_embeds" in batch or "enc_embeds" in batch:
+    if "enc_embeds" in batch:
         raise NotImplementedError(
-            "vision and encoder inputs are not ported yet: ROADMAP A4")
+            "encoder inputs are not ported yet: ROADMAP A4b")
     tokens = batch["tokens"]
+    b, s = tokens.shape
     h = _embed_tokens(params, tokens)
-    angles = _angles_for(cfg, tokens.shape[1], tokens.device)
+    h = _merge_vision(cfg, h, batch.get("vision_embeds"))
+    angles = _angles_for(cfg, b, s, tokens.device)
     h, aux = _run_blocks(params, h, cfg, angles, causal=True,
                          attn_impl=attn_impl)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
@@ -216,7 +247,8 @@ def decode_step(params: PyTree, caches: PyTree, token: torch.Tensor,
     (attention's ring buffers, see ``attention.attention_decode``, and the
     recurrent states), and the returned caches are the ones passed in."""
     h = _embed_tokens(params, token)
-    angles = _angles_for(cfg, 1, token.device, position=int(pos))
+    angles = _angles_for(cfg, token.shape[0], 1, token.device,
+                         position=int(pos))
     for i in range(cfg.n_repeats):
         layer_caches = take_layer(caches, i)
         h, _ = blocks.block_decode(take_layer(params["blocks"], i), h,
@@ -229,7 +261,11 @@ def prefill(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             cache_len: int):
     """Run the full prompt by replaying it one token at a time through
     :func:`decode_step` (exact), materializing decode caches of capacity
-    ``cache_len``.  Returns (logits (B,S,V), caches)."""
+    ``cache_len``.  Returns (logits (B,S,V), caches).
+
+    Only ``batch["tokens"]`` is replayed, as in the JAX package: a vision
+    model's ``vision_embeds`` are ignored and its prefix positions take the
+    decode positions (negative below V - 1), not the vision grid."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     caches = init_cache(cfg, b, cache_len, device=tokens.device)

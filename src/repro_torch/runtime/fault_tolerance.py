@@ -14,7 +14,7 @@ the failure channel is injectable so the whole machinery is unit-testable:
   hot-spare swap / re-slice; here the decision log is the artifact.
 
 The JAX package's elastic re-meshing (``runtime/elastic.py``) is not ported
-(ROADMAP A4): the port runs on one device.  A ``step_fn`` that updates the
+(ROADMAP A6): the port runs on one device.  A ``step_fn`` that updates the
 state in place (the port's train step does) replays a failure before the
 first checkpoint from the state as it then stands, not from the initial
 one; ``repro_torch.launch.train`` saves a step-0 checkpoint first.

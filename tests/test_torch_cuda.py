@@ -238,6 +238,8 @@ def _assert_attention_close(got, q, k, v, causal, window, path):
     (1, 257, 513, 16, 4, 128, True, 0, torch.bfloat16, "tc"),   # GQA 4, Skv>S
     (1, 200, 50, 8, 2, 64, True, 30, torch.bfloat16, "tc"),     # rows, no key
     (1, 160, 160, 4, 2, 32, True, 0, torch.bfloat16, "tc"),     # hd < 64
+    (1, 1024, 1024, 28, 4, 128, True, 0, torch.bfloat16, "tc"),  # qwen2-vl
+    (2, 300, 300, 7, 1, 64, True, 0, torch.bfloat16, "tc"),     # GQA 7
     (512, 8, 8, 4, 4, 64, False, 0, torch.float32, "short"),    # embedder
     (300, 1, 1, 4, 4, 64, False, 0, torch.float32, "short"),    # S = 1
     (300, 1, 1, 4, 4, 64, False, 0, torch.bfloat16, "short"),
@@ -542,3 +544,41 @@ def test_top_k_ties_route_alike_on_the_card(cuda):
         w1, i1 = moe._top_k_gating(logits.to(cuda), k)
         assert torch.equal(i1.cpu(), i0)
         torch.testing.assert_close(w1.cpu(), w0, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (7, 1)])
+def test_vision_model_on_the_card_matches_the_cpu(cuda, heads):
+    """qwen2-vl's smoke model (and a 7-heads-on-1 variant) from the same
+    seeded float32 weights: ``lm_logits`` with vision embeddings (M-RoPE
+    grid positions, the merge) and a replay ``prefill`` past the vision
+    prefix (negative decode positions, then text) on the card against the
+    CPU (TF32 off), within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b").smoke(),
+                              n_heads=heads[0], n_kv_heads=heads[1])
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen),
+             "vision_embeds": torch.randn(2, cfg.vision_tokens, cfg.d_model,
+                                          generator=gen)}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for dev in ("cpu", cuda):
+            p = _tree_to(params, dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                logits = lm.lm_logits(p, b, cfg)
+                replay, _ = lm.prefill(p, b, cfg, 40)
+            out.append((logits.cpu(), replay.cpu()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l0, r0), (l1, r1) = out
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(r1, r0, rtol=1e-4, atol=1e-4)

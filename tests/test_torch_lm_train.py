@@ -75,14 +75,28 @@ def _names_jax(tree):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "llama3.2-1b",
-                                  "qwen3-1.7b", "olmoe-1b-7b"])
+                                  "qwen3-1.7b", "olmoe-1b-7b",
+                                  "qwen2-vl-7b"])
 def test_lm_loss_and_grads_match_jax(arch):
     """h2o-danube at S = 128 so that its smoke window of 64 bites; llama
     (tied embeddings) and qwen3 (qk-norm) for the other branches; olmoe for
     MoE: its routers' aux loss in the loss and in the metrics, and every
-    leaf's gradient, the routers' included."""
+    leaf's gradient, the routers' included; qwen2-vl with vision
+    embeddings over its first 16 positions, whose token ids (one id, used
+    nowhere else) get an embedding gradient of exactly zero in both
+    packages."""
     cfg_j, pj, cfg, pt = _model(arch)
     bj, bt = _batch(cfg, 2, 128, seed=1)
+    prefix_id = cfg.vocab_size - 1
+    if cfg.vision_tokens:
+        vt = cfg.vision_tokens
+        toks = np.asarray(bt["tokens"]) % prefix_id
+        toks[:, :vt] = prefix_id
+        vis = np.random.default_rng(2).normal(
+            size=(2, vt, cfg.d_model)).astype(np.float32)
+        bj = dict(bj, tokens=jnp.asarray(toks), vision_embeds=jnp.asarray(vis))
+        bt = dict(bt, tokens=torch.from_numpy(toks),
+                  vision_embeds=torch.from_numpy(vis))
     (want, mj), gj = jax.jit(jax.value_and_grad(
         lambda p: jax_lm.lm_loss(p, bj, cfg_j), has_aux=True))(pj)
     leaves = tree_leaves(pt)
@@ -100,6 +114,11 @@ def test_lm_loss_and_grads_match_jax(arch):
     for name, g, w in zip(names, grads, jax.tree.leaves(gj)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-6, err_msg=name)
+    if cfg.vision_tokens:
+        g_embed = grads[names.index("embed")]
+        assert not g_embed[prefix_id].any()
+        assert not np.asarray(gj["embed"])[prefix_id].any()
+        assert g_embed[:prefix_id].abs().sum() > 0
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])

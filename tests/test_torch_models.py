@@ -63,7 +63,8 @@ def _f32(x) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 # tests/test_kernels.py's four shapes, h2o-danube's head dim 120 with a
-# window that bites, and the transformer embedder's bidirectional S = 8
+# window that bites, the transformer embedder's bidirectional S = 8, and
+# qwen2-vl-7b's 28 heads on 4 KV heads
 FLASH_SHAPES = [
     (2, 128, 128, 8, 4, 64, True, 0),
     (1, 128, 128, 4, 4, 128, True, 64),
@@ -71,6 +72,7 @@ FLASH_SHAPES = [
     (1, 64, 192, 4, 2, 64, False, 0),
     (1, 128, 128, 8, 2, 120, True, 64),
     (3, 8, 8, 4, 4, 64, False, 0),
+    (1, 128, 128, 28, 4, 128, True, 0),   # qwen2-vl-7b's heads: a group of 7
 ]
 
 
@@ -251,7 +253,8 @@ def _flat_specs(tree, path=""):
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "llama3.2-1b",
                                   "qwen3-1.7b", "tasti-embedder",
                                   "olmoe-1b-7b", "qwen3-moe-30b-a3b",
-                                  "xlstm-350m", "jamba-1.5-large-398b"])
+                                  "xlstm-350m", "jamba-1.5-large-398b",
+                                  "qwen2-vl-7b"])
 def test_parameter_layout_matches_jax(arch):
     """Full-width specs (no allocation): the same tree, shapes and dtypes."""
     assert _flat_specs(lm.model_specs(get_config(arch))) == \
@@ -295,6 +298,54 @@ def test_rope_and_rmsnorm_match_jax(dtype):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
+# the smoke sections (8, 4, 4) on hd 32 with 16 vision tokens on 4 x 4, and
+# qwen2-vl-7b's own (16, 24, 24) on hd 128 with 256 on 16 x 16
+MROPE_CASES = {"smoke": (32, (8, 4, 4), 16, (4, 4)),
+               "full": (128, (16, 24, 24), 256, (16, 16))}
+
+
+@pytest.mark.parametrize("case", sorted(MROPE_CASES))
+def test_mrope_positions_and_angles_match_jax(case):
+    """The (3, B, S) positions exactly (a prompt past the prefix, and an
+    offset one), int64 as RoPE's; the angles in float32 to 1e-6."""
+    hd, sections, v, grid = MROPE_CASES[case]
+    for seq, offset in ((v + 40, 0), (50, v - 20)):
+        want = np.asarray(jax_rope.mrope_positions(2, seq, v, grid, offset))
+        got = rope.mrope_positions(2, seq, v, grid, offset)
+        assert got.dtype == torch.int64 and got.shape == (3, 2, seq)
+        np.testing.assert_array_equal(got.numpy(), want)
+        aj = jax_rope.mrope_angles(jnp.asarray(want), hd, 1e6, sections)
+        at = rope.mrope_angles(got, hd, 1e6, sections)
+        assert at.dtype == torch.float32 and at.shape == (2, seq, hd // 2)
+        np.testing.assert_allclose(at.numpy(), np.asarray(aj), rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", sorted(MROPE_CASES))
+def test_mrope_angles_for_the_model_match_jax(case):
+    """``lm._angles_for`` with M-RoPE against the JAX package's: the
+    parallel forward's (B, S, hd/2) grid angles, and decode's at positions
+    below the vision prefix (p = pos - V + 1 < 0), at its edge and past
+    it."""
+    hd, sections, v, grid = MROPE_CASES[case]
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b"), head_dim=hd,
+                              mrope_sections=sections, vision_tokens=v,
+                              vision_grid=grid)
+    cfg_j = dataclasses.replace(jax_config("qwen2-vl-7b"), head_dim=hd,
+                                mrope_sections=sections, vision_tokens=v,
+                                vision_grid=grid)
+    got = lm._angles_for(cfg, 3, v + 24, "cpu")
+    want = np.asarray(jax_lm._angles_for(cfg_j, 3, v + 24))
+    assert got.shape == (3, v + 24, hd // 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    for pos in (0, 5, v - 2, v - 1, v, v + 3000):
+        got = lm._angles_for(cfg, 3, 1, "cpu", position=pos)
+        want = np.asarray(jax_lm._angles_for(cfg_j, 3, 1,
+                                             positions=jnp.int32(pos)))
+        assert got.shape == (3, 1, hd // 2), pos
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, err_msg=pos)
+        assert (float(got[0, 0, 1]) < 0) == (pos < v - 1), pos
+
+
 def test_params_from_jax_keeps_bfloat16_bits():
     cfg = jax_config("h2o-danube-3-4b").smoke()
     cfg = dataclasses.replace(cfg, param_dtype="bfloat16", dtype="bfloat16")
@@ -322,11 +373,25 @@ def test_params_from_jax_keeps_bfloat16_bits():
 # the model: logits, decode, replay prefill
 # ---------------------------------------------------------------------------
 
+# smoke variants beside the configs' own: qwen2-vl with 7 query heads on
+# one KV head, so that a GQA group of 7 (qwen2-vl-7b's 28 on 4) runs
+# through the whole model
+VARIANTS = {"qwen2-vl-7b-gqa7": ("qwen2-vl-7b",
+                                 {"n_heads": 7, "n_kv_heads": 1})}
+
+
 def _model(arch, seed=0):
-    cfg_j = jax_config(arch).smoke()
+    arch, over = VARIANTS.get(arch, (arch, {}))
+    cfg_j = dataclasses.replace(jax_config(arch).smoke(), **over)
     pj = jax_lm.init_model(cfg_j, jax.random.PRNGKey(seed))
-    return (cfg_j, pj, get_config(arch).smoke(),
+    return (cfg_j, pj, dataclasses.replace(get_config(arch).smoke(), **over),
             lm.params_from_jax(jax.tree.map(np.asarray, pj)))
+
+
+def _vision(cfg, b, seed):
+    """Seeded patch embeddings (B, V, D) as numpy, for a vision model."""
+    return np.random.default_rng(seed).normal(
+        size=(b, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
 
 
 def _one_ulp_witness(pj, run, base):
@@ -348,24 +413,32 @@ def _one_ulp_witness(pj, run, base):
     ("llama3.2-1b", "xla"), ("qwen3-1.7b", "xla"),
     ("olmoe-1b-7b", "xla"), ("olmoe-1b-7b", "pallas_interpret"),
     ("qwen3-moe-30b-a3b", "xla"), ("xlstm-350m", "xla"),
-    ("jamba-1.5-large-398b", "xla")])
+    ("jamba-1.5-large-398b", "xla"),
+    ("qwen2-vl-7b", "xla"), ("qwen2-vl-7b", "pallas_interpret"),
+    ("qwen2-vl-7b-gqa7", "xla"), ("qwen2-vl-7b-gqa7", "pallas_interpret")])
 def test_lm_logits_match_jax(arch, jax_impl):
     """h2o-danube at S = 128 so that its smoke window of 64 bites; llama
     (tied embeddings) and qwen3 (qk-norm) for the other branches; the MoE
     models (olmoe MHA, qwen3-moe GQA), xLSTM (mLSTM and sLSTM) and jamba
-    (Mamba, attention, dense and MoE layers).  1e-4, or for xlstm-350m
-    twice the reference's one-ulp witness (``_one_ulp_witness``) where
-    that is larger."""
+    (Mamba, attention, dense and MoE layers); qwen2-vl (M-RoPE, 16 vision
+    embeddings merged over the first positions) and its 7-heads-on-1
+    variant.  1e-4, or for xlstm-350m twice the reference's one-ulp
+    witness (``_one_ulp_witness``) where that is larger."""
     cfg_j, pj, cfg, pt = _model(arch)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+    batch_j = {"tokens": jnp.asarray(toks)}
+    batch = {"tokens": torch.from_numpy(toks)}
+    if cfg.vision_tokens:
+        vis = _vision(cfg, 2, seed=3)
+        batch_j["vision_embeds"] = jnp.asarray(vis)
+        batch["vision_embeds"] = torch.from_numpy(vis)
 
     def reference(params):
-        return np.asarray(jax_lm.lm_logits(
-            params, {"tokens": jnp.asarray(toks)}, cfg_j, attn_impl=jax_impl))
+        return np.asarray(jax_lm.lm_logits(params, batch_j, cfg_j,
+                                           attn_impl=jax_impl))
 
     want = reference(pj)
     step = make_prefill_step(cfg)
-    batch = {"tokens": torch.from_numpy(toks)}
     got = step(pt, batch)
     assert got.shape == (2, 128, cfg.padded_vocab)
     tol = 1e-4
@@ -425,15 +498,20 @@ def test_decode_ring_wraps_like_jax():
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-30b-a3b",
-                                  "xlstm-350m", "jamba-1.5-large-398b"])
+                                  "xlstm-350m", "jamba-1.5-large-398b",
+                                  "qwen2-vl-7b", "qwen2-vl-7b-gqa7"])
 def test_decode_of_every_mixer_matches_jax(arch):
     """Decode steps against the reference's (1e-4; for xlstm-350m twice the
     reference's one-ulp witness of the same steps where that is larger),
     the recurrent states after them (1e-4), and the replay against the
     parallel forward within tests/test_model_consistency.py's 2e-2.  MoE
-    decode is dropless (a group of B tokens)."""
+    decode is dropless (a group of B tokens).  qwen2-vl's prompt runs past
+    its 16 vision tokens, and its replay ``prefill`` is held against the
+    reference's with vision embeddings in the batch, which both ignore:
+    their prefix takes the decode positions (negative), not the grid, so
+    the replay is not the parallel forward there."""
     cfg_j, pj, cfg, pt = _model(arch, seed=1)
-    b, s = 2, 16
+    b, s = 2, 24 if cfg.vision_tokens else 16
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s))
     jax_step = jax.jit(jax_lm.decode_step, static_argnums=4)
 
@@ -447,8 +525,17 @@ def test_decode_of_every_mixer_matches_jax(arch):
         return np.stack(logits, 1), cj
 
     want, cj = reference(pj)
+    batch = {"tokens": torch.from_numpy(toks)}
+    if cfg.vision_tokens:
+        vis = _vision(cfg, b, seed=4)
+        batch["vision_embeds"] = torch.from_numpy(vis)
+        replay, _ = jax_lm.prefill(pj, {"tokens": jnp.asarray(toks),
+                                        "vision_embeds": jnp.asarray(vis)},
+                                   cfg_j, s)
+        np.testing.assert_allclose(np.asarray(replay), want, rtol=1e-4,
+                                   atol=1e-4)
     with torch.no_grad():
-        got, ct = lm.prefill(pt, {"tokens": torch.from_numpy(toks)}, cfg, s)
+        got, ct = lm.prefill(pt, batch, cfg, s)
     tol = 1e-4
     if arch == "xlstm-350m":
         tol = max(tol, 2 * _one_ulp_witness(pj, lambda p: reference(p)[0],
@@ -463,17 +550,20 @@ def test_decode_of_every_mixer_matches_jax(arch):
             if spec.mixer != "attn":
                 np.testing.assert_allclose(_f32(state), ref, rtol=1e-4,
                                            atol=1e-4, err_msg=name)
+    if cfg.vision_tokens:
+        return
     par = make_prefill_step(cfg)(pt, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(got.numpy(), par.numpy(), rtol=2e-2,
                                atol=2e-2)
 
 
-def test_serve_lm_cli_on_cpu(capsys):
-    serve_lm.main(["--arch", "h2o-danube-3-4b", "--preset", "ci", "--batch",
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "qwen2-vl-7b"])
+def test_serve_lm_cli_on_cpu(capsys, arch):
+    serve_lm.main(["--arch", arch, "--preset", "ci", "--batch",
                    "2", "--prompt-len", "8", "--decode-steps", "4",
                    "--device", "cpu"])
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("[serve] arch=h2o-danube-3-4b-smoke batch=2 "
+    assert out[0].startswith(f"[serve] arch={arch}-smoke batch=2 "
                              "prefill=8 tok")
     assert out[1].startswith("[serve] sample generation ids: [")
     assert len(eval(out[1].split(": ", 1)[1])) == 4
@@ -529,15 +619,15 @@ def test_build_tasti_takes_the_transformer_embedder():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch,what", [
-    ("seamless-m4t-large-v2", "encoder"), ("qwen2-vl-7b", "vision")])
+    ("seamless-m4t-large-v2", "encoder")])
 def test_unported_architectures_raise(arch, what):
     with pytest.raises(NotImplementedError, match=what):
         lm.model_specs(get_config(arch).smoke())
 
 
 @pytest.mark.parametrize("field,value,roadmap", [
-    ("shard_strategy", "seq_dp", "A4"), ("decode_cache_update", "dus", "A3"),
-    ("decode_ring", 4, "A3")])
+    ("shard_strategy", "seq_dp", "A6"), ("decode_cache_update", "dus", "A5"),
+    ("decode_ring", 4, "A5")])
 def test_unported_attention_options_raise(field, value, roadmap):
     cfg = dataclasses.replace(get_config("llama3.2-1b").smoke(),
                               **{field: value})

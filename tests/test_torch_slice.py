@@ -262,6 +262,15 @@ opt = OptimizerConfig(peak_lr=1e-3, warmup_steps=1, total_steps=2)
 _, _, m = make_train_step(cfg, opt)(p, init_opt_state(p, opt), {
     "tokens": toks[:, :16], "targets": toks[:, 1:17]})
 assert float(m["aux_loss"]) > 0
+# the vision-language model: M-RoPE and a prefix of patch embeddings
+cfg = get_config("qwen2-vl-7b").smoke()
+p = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+vis = torch.randn(1, cfg.vision_tokens, cfg.d_model)
+assert make_prefill_step(cfg)(p, {"tokens": toks[:, :32],
+                                  "vision_embeds": vis}).shape == \
+    (1, 32, cfg.padded_vocab)
+assert serve_lm.serve(p, cfg, toks[:, :20], decode_steps=2)[
+    "generated"].shape == (1, 2)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
