@@ -3,7 +3,9 @@
     python3 chip_smoke.py            # full width: 1M frames, 7,000 reps,
                                      # h2o-danube-3-4b, olmoe-1b-7b and
                                      # qwen2-vl-7b on a 32,768-token
-                                     # prompt, qwen3-moe-30b-a3b on 8,192
+                                     # prompt, qwen3-moe-30b-a3b on 8,192,
+                                     # seamless-m4t-large-v2 on 16,384
+                                     # frames and 16,384 tokens
 
 1. Prints the card (nvidia-smi), builds every CUDA kernel of the port from
    ``src/repro_torch/csrc`` (one nvcc per source, in parallel).
@@ -85,6 +87,19 @@
    the CPU's with the depth cut to 2 layers in float32); then the kernel
    alone at the prefill's shape, heads 0, 6, 7, 20, 21 and 27 each held
    against the plain version run on that head and its KV head.
+11. seamless-m4t-large-v2 at its published widths (all 24 + 24 layers,
+   seeded bf16 weights, seeded frame embeddings for the stubbed audio
+   frontend): the kernel route against the plain route at 4,096 frames +
+   4,096 tokens (compare_routes; float32 on the simt path);
+   seamless_prefill (16,384 frames + 16,384 tokens through
+   ``make_prefill_step``: 72 launches, all tc, bidirectional in the
+   encoder and the cross-attention, Skv != S there at other lengths);
+   seamless_decode (4,096 frames encoded on the card, the cross K/V
+   filled as ``prefill`` fills them, 16 greedy steps at batch 4 after
+   4,096 seeded self-attention slots; a float32 replay ``prefill`` of 4 x
+   48 tokens over 256 frames against the parallel forward); then the
+   kernel alone at (1, 16384, 16, 64), bidirectional and causal, each head
+   held against the plain version on its own.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -708,15 +723,16 @@ def check_flash_attention(dev, label: str, b: int, s: int, h: int, hk: int,
 
 
 def time_flash_full(dev, cfg, seq: int, iters: int = 2,
-                    plain: bool = False, heads=()):
-    """One kernel launch at a full-width prefill layer's shape, beside
-    ``scaled_dot_product_attention``; with ``plain`` (only where its
-    (H, S, S) float32 scores fit) the plain version is timed and the
-    kernel's output held against it as ``check_flash_attention`` holds it
-    (``allowed_error``, with the P-rounding witness on the tc path).  With
-    ``heads`` (where they do not fit), each of those query heads of the
-    kernel's output is held the same way against the plain version run on
-    that head and its KV head alone, and that one-head run is timed."""
+                    plain: bool = False, heads=(), causal: bool = True):
+    """One kernel launch at a full-width prefill layer's shape, causal
+    unless asked otherwise, beside ``scaled_dot_product_attention``; with
+    ``plain`` (only where its (H, S, S) float32 scores fit) the plain
+    version is timed and the kernel's output held against it as
+    ``check_flash_attention`` holds it (``allowed_error``, with the
+    P-rounding witness on the tc path).  With ``heads`` (where they do not
+    fit), each of those query heads of the kernel's output is held the
+    same way against the plain version run on that head and its KV head
+    alone, and that one-head run is timed."""
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_route)
     from repro_torch.kernels.flash_attention.ref import (allowed_error,
@@ -728,26 +744,26 @@ def time_flash_full(dev, cfg, seq: int, iters: int = 2,
     k = torch.randn(1, seq, hk, hd, device=dev, generator=g).bfloat16()
     v = torch.randn(1, seq, hk, hd, device=dev, generator=g).bfloat16()
     path = flash_route(q, k)
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
                                          window=window), iters)
-    lib_ms = sdpa_ms(q, k, v, True, window, iters)
+    lib_ms = sdpa_ms(q, k, v, causal, window, iters)
     plain_ms = plain_head_ms = err = outside = None
     held = []
     if plain:
         plain_ms = time_ms(lambda: flash_attention_ref(
-            q, k, v, causal=True, window=window), 1)
-        got = flash_attention(q, k, v, causal=True, window=window)
-        want, allowed = allowed_error(q, k, v, True, window,
+            q, k, v, causal=causal, window=window), 1)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want, allowed = allowed_error(q, k, v, causal, window,
                                       round_p=path == "tc")
         diff = (got.float() - want).abs()
         err, outside = float(diff.max()), int((diff > allowed).sum())
         del got, want, allowed, diff
     if heads:
-        got = flash_attention(q, k, v, causal=True, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
         for hi in heads:
             kv = hi // (h // hk)
             one = (q[:, :, hi:hi + 1], k[:, :, kv:kv + 1], v[:, :, kv:kv + 1])
-            want, allowed = allowed_error(*one, True, window,
+            want, allowed = allowed_error(*one, causal, window,
                                           round_p=path == "tc")
             diff = (got[:, :, hi:hi + 1].float() - want).abs()
             held.append({"head": hi, "kv_head": kv,
@@ -756,30 +772,31 @@ def time_flash_full(dev, cfg, seq: int, iters: int = 2,
             del want, allowed, diff
         one = (q[:, :, :1], k[:, :, :1], v[:, :, :1])
         plain_head_ms = time_ms(lambda: flash_attention_ref(
-            *one, causal=True, window=window), 1)
+            *one, causal=causal, window=window), 1)
         del got, one
         err = max(x["max_abs_err"] for x in held)
         outside = sum(x["outside_tol"] for x in held)
     bnd, by, flops = attention_bound(1, seq, seq, h, hk, hd, torch.bfloat16,
-                                     True, window)
+                                     causal, window)
     if plain_ms is not None:
         against = (f"{plain_ms:.3f} ms; against it max_abs_err {err:.3g}, "
                    f"{outside} outside the tolerance")
     elif held:
-        against = (f"not measured (all heads' scores do not fit), one head "
-                   f"alone {plain_head_ms:.3f} ms; heads (kv head) "
+        against = (f"not measured on all heads at once (their scores and "
+                   f"the witness's temporaries do not fit), one head alone "
+                   f"{plain_head_ms:.3f} ms; heads (kv head) "
                    + ", ".join(f"{x['head']} ({x['kv_head']})" for x in held)
                    + f" held against it: max_abs_err {err:.3g}, {outside} "
                    f"outside the tolerance")
     else:
         against = "not measured"
     log(f"flash_attention[{cfg.name} prefill {seq}] {path} q {(1, seq, h, hd)}"
-        f" k {(1, seq, hk, hd)} one launch {ms:.3f} ms ({flops / ms / 1e9:.1f}"
-        f" TFLOP/s), library {lib_ms:.3f} ms, plain {against}, bound "
-        f"{bnd:.4f} ms ({by})")
+        f" k {(1, seq, hk, hd)} causal={causal} one launch {ms:.3f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), library {lib_ms:.3f} ms, plain "
+        f"{against}, bound {bnd:.4f} ms ({by})")
     assert not outside, (cfg.name, seq, err, outside, held)
     return {"model": cfg.name, "seq": seq, "shape": [1, seq, seq, h, hk, hd],
-            "path": path, "ms": ms, "library_ms": lib_ms,
+            "causal": causal, "path": path, "ms": ms, "library_ms": lib_ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "max_abs_err": err, "outside_tol": outside,
             **({"heads_held": held, "plain_head_ms": plain_head_ms}
@@ -2528,6 +2545,189 @@ def run_vlm(dev, prefill_len: int, compare_len: int, profile) -> dict:
     return out
 
 
+# seamless-m4t-large-v2: a prompt's length split 50/50 between encoder
+# frames and decoder tokens, as the reference splits its shapes
+# (src/repro/launch/specs.py); decode at batch 4 over 4,096 encoded frames
+# and 4,096 seeded self-attention slots; its replay, float32 at full depth,
+# of 4 x 48 tokens over 256 frames
+SEAMLESS_DECODE_BATCH, SEAMLESS_DECODE_CTX, SEAMLESS_DECODE_STEPS = 4, 4096, 16
+SEAMLESS_REPLAY_BATCH, SEAMLESS_REPLAY_LEN, SEAMLESS_REPLAY_FRAMES = 4, 48, 256
+
+
+def seamless_frames(cfg, b: int, s: int, g, dev) -> torch.Tensor:
+    """Seeded frame embeddings (B, S, D), the stubbed audio frontend's
+    output, at the embedding rows' scale (init draws normal / sqrt(fan_in),
+    fan_in the padded vocabulary), in bf16."""
+    return (torch.randn(b, s, cfg.d_model, device=dev, generator=g)
+            / math.sqrt(cfg.padded_vocab)).bfloat16()
+
+
+def prefill_in_weight_dtype(cfg, attn_impl: str):
+    """``make_prefill_step`` of ``cfg`` run in the dtype of the weights it
+    is given: the encoder casts its input to ``cfg.dtype``, so the weights
+    cast to float32 take a config whose dtype is float32 too."""
+    import dataclasses
+
+    from repro_torch.train.steps import make_prefill_step
+    steps = {dt: make_prefill_step(dataclasses.replace(cfg, dtype=dt),
+                                   attn_impl=attn_impl)
+             for dt in ("bfloat16", "float32")}
+    return lambda p, batch: steps[str(p["embed"].dtype)[6:]](p, batch)
+
+
+def run_seamless(dev, prefill_len: int, compare_len: int, profile) -> dict:
+    """seamless_prefill and seamless_decode at seamless-m4t-large-v2's
+    published widths (seeded bf16 weights, seeded frame embeddings); then
+    the kernel alone at its two layer shapes, bidirectional (encoder and
+    cross) and causal (decoder self), every head held against the plain
+    version on its own."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config("seamless-m4t-large-v2")
+    # encoder self, decoder self and decoder cross: one launch each a layer
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_repeats
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, g, device=dev)
+    torch.cuda.synchronize()
+    log(f"seamless init: {cfg.name}, {cfg.param_count() / 1e9:.3f}B "
+        f"parameters (bf16, seeded), {time.perf_counter() - t0:.2f} s, device "
+        f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    enc_len = prefill_len // 2
+    dec_len = prefill_len - enc_len
+    frames = seamless_frames(cfg, 1, enc_len, g, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, dec_len), device=dev,
+                           generator=g)
+    out = {"model": cfg.name, "frames": enc_len, "tokens": dec_len}
+    # the kernel route against the plain route at compare_len, split the
+    # same way (also warms cuBLAS and the kernel up); the float32 run takes
+    # the kernel's simt path
+    c_enc = compare_len // 2
+    reset_launches()
+    out["compare"] = compare_routes(
+        cfg, params, {"tokens": tokens[:, :compare_len - c_enc],
+                      "enc_embeds": frames[:, :c_enc]},
+        prefill_in_weight_dtype(cfg, "kernel"),
+        prefill_in_weight_dtype(cfg, "plain"), label="seamless_prefill")
+    cmp_paths = dict(flash_attention.launches_by_path)
+    log(f"seamless_prefill compare: {c_enc} frames, "
+        f"{compare_len - c_enc} tokens; flash launches {cmp_paths} (bf16 on "
+        f"tc, float32 on simt)")
+    assert cmp_paths == {"simt": n_attn, "tc": n_attn, "short": 0}, cmp_paths
+    out["compare"]["launches_by_path"] = cmp_paths
+    free_card()
+
+    prefill = make_prefill_step(cfg)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("seamless_prefill", profile) as ph:
+        logits = prefill(params, {"tokens": tokens, "enc_embeds": frames})
+    launches = flash_attention.launches
+    paths = dict(flash_attention.launches_by_path)
+    peak = peak_gib()                       # before isfinite's temporaries
+    finite = bool(torch.isfinite(logits).all())
+    log(f"phase seamless_prefill: {cfg.name}, {enc_len} frames + {dec_len} "
+        f"tokens in {ph.seconds:.3f} s ({prefill_len / ph.seconds:.1f} "
+        f"frames and tokens/s), logits {tuple(logits.shape)} "
+        f"finite={finite}, flash launches {launches} {paths}, peak device "
+        f"memory {peak:.2f} GiB")
+    assert logits.shape == (1, dec_len, cfg.padded_vocab), logits.shape
+    assert finite
+    assert launches == n_attn, (launches, n_attn)
+    assert paths == {"simt": 0, "tc": n_attn, "short": 0}, paths
+    del logits, frames, tokens
+    free_card()
+    out.update(seconds=ph.seconds, tokens_s=prefill_len / ph.seconds,
+               launches=launches, launches_by_path=paths, peak_gib=peak)
+
+    # seamless_decode: encode the frames on the card, fill the cross K/V as
+    # prefill fills them, seed the self-attention slots, then greedy steps
+    batch, ctx = SEAMLESS_DECODE_BATCH, SEAMLESS_DECODE_CTX
+    steps = SEAMLESS_DECODE_STEPS
+    dframes = seamless_frames(cfg, batch, ctx, g, dev)
+    caches = lm.init_cache(cfg, batch, ctx + steps, ctx, device=dev)
+    for layer in caches:
+        for name in ("k", "v"):
+            layer[name].normal_(generator=g)
+    step = make_serve_step(cfg)
+    tok = torch.randint(1, cfg.vocab_size, (batch, 1), device=dev,
+                        generator=g)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("seamless_decode", profile) as ph:
+        with torch.no_grad():
+            lm.fill_cross_caches(params, caches,
+                                 lm.encode(params, dframes, cfg))
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - ph.t0
+        for t in range(steps):
+            lg, caches = step(params, caches, tok, ctx + t)
+            tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1)
+    dec_launches = flash_attention.launches
+    dec_paths = dict(flash_attention.launches_by_path)
+    dec_finite = bool(torch.isfinite(lg).all())
+    dec_peak = peak_gib()
+    step_ms = 1e3 * (ph.seconds - enc_s) / steps
+    del caches, lg, dframes
+    log(f"phase seamless_decode: encode {batch} x {ctx} frames and fill "
+        f"the cross K/V {enc_s:.3f} s; {steps} steps x batch {batch} at "
+        f"self cache {ctx} and cross {ctx} in {ph.seconds - enc_s:.3f} s "
+        f"({step_ms:.2f} ms per step, {batch * 1e3 / step_ms:.1f} tok/s), "
+        f"finite={dec_finite}, flash launches {dec_launches} {dec_paths} "
+        f"(the encoder's; decode attention is plain, as the reference's); "
+        f"peak device memory {dec_peak:.2f} GiB")
+    assert dec_finite
+    assert dec_paths == {"simt": 0, "tc": cfg.n_encoder_layers,
+                         "short": 0}, dec_paths
+
+    # the replay against the parallel forward, float32 at full depth
+    rcfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda a: a.float(), params)
+    del params
+    free_card()
+    rb = {"tokens": torch.randint(1, cfg.vocab_size, (
+        SEAMLESS_REPLAY_BATCH, SEAMLESS_REPLAY_LEN), device=dev, generator=g),
+          "enc_embeds": seamless_frames(
+              cfg, SEAMLESS_REPLAY_BATCH, SEAMLESS_REPLAY_FRAMES, g,
+              dev).float()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        par = lm.lm_logits(p32, rb, rcfg)
+        replay, _ = lm.prefill(p32, rb, rcfg, SEAMLESS_REPLAY_LEN)
+    torch.cuda.synchronize()
+    mx, mean, top1 = logits_agreement(replay, par, cfg.vocab_size)
+    log(f"seamless_decode replay ({SEAMLESS_REPLAY_BATCH} x "
+        f"{SEAMLESS_REPLAY_LEN} tokens over {SEAMLESS_REPLAY_FRAMES} frames, "
+        f"float32, all {cfg.n_encoder_layers} + {cfg.n_repeats} layers) vs "
+        f"the parallel forward: max |d logits| {mx:.4g}, mean {mean:.4g}, "
+        f"top-1 {top1:.5f} (<= {REPLAY_TOL}); {time.perf_counter() - t0:.2f}"
+        f" s")
+    assert mx <= REPLAY_TOL, mx
+    out["decode"] = {"steps": steps, "batch": batch, "frames": ctx,
+                     "cache": ctx, "encode_s": enc_s, "step_ms": step_ms,
+                     "tok_s": batch * 1e3 / step_ms,
+                     "launches": dec_launches, "launches_by_path": dec_paths,
+                     "peak_gib": dec_peak,
+                     "replay": {"max_abs": mx, "mean_abs": mean,
+                                "top1": top1}}
+    del p32, par, replay, rb
+    free_card()
+    # the kernel alone at both layer shapes, every head held on its own
+    heads = tuple(range(cfg.n_heads))
+    out["flash_full"] = [
+        time_flash_full(dev, cfg, enc_len, heads=heads, causal=False),
+        time_flash_full(dev, cfg, dec_len, heads=heads, causal=True)]
+    free_card()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
@@ -2617,7 +2817,9 @@ def main(argv=None) -> None:
     ]
     # correctness only: the tc path at hd 64, 80 and 128, S no multiple of
     # 128 and Skv != S, GQA ratios 1 and 4, rows with no key, a window
-    # without causal; the short path at S 1, 8 and 32 in both dtypes
+    # without causal, and the shapes the mixer and seamless paths launch
+    # below their full-width prefills (seamless_decode's encoder: batch 4
+    # over 4,096 frames); the short path at S 1, 8 and 32 in both dtypes
     bf, f32 = torch.bfloat16, torch.float32
     for label, b, s, skv, h, hk, hd, dtype, causal, window, path in [
             ("tc-hd64-gqa1", 2, 1000, 1000, 8, 8, 64, bf, True, 0, "tc"),
@@ -2631,6 +2833,10 @@ def main(argv=None) -> None:
              "tc"),
             ("tc-hd128-gqa8-qwen3moe", 1, 2048, 2048, 32, 4, 128, bf, True,
              0, "tc"),
+            ("tc-hd64-cross-seamless", 1, 3000, 5000, 16, 16, 64, bf, False,
+             0, "tc"),
+            ("tc-hd64-bidir-seamless-decode", 4, 4096, 4096, 16, 16, 64, bf,
+             False, 0, "tc"),
             ("short-s1-f32", 4096, 1, 1, 4, 4, 64, f32, False, 0, "short"),
             ("short-s1-bf16", 4096, 1, 1, 4, 4, 64, bf, False, 0, "short"),
             ("short-s8-f32", 4096, 8, 8, 4, 4, 64, f32, False, 0, "short"),
@@ -2791,6 +2997,11 @@ def main(argv=None) -> None:
     vlm_flash = {"vlm_prefill": vlm["launches"],
                  "vlm_decode": vlm["decode"]["launches"]}
     launches["flash_attention"] += sum(vlm_flash.values())
+    seamless = run_seamless(dev, args.prefill_len, args.compare_len,
+                            args.profile)
+    seamless_flash = {"seamless_prefill": seamless["launches"],
+                      "seamless_decode": seamless["decode"]["launches"]}
+    launches["flash_attention"] += sum(seamless_flash.values())
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
@@ -2802,7 +3013,8 @@ def main(argv=None) -> None:
     by_label = {r["label"]: r for r in flash}
     phase_paths = [mixers["moe_prefill"]["launches_by_path"],
                    mixers["moe_prefill_qwen3"]["launches_by_path"],
-                   vlm["launches_by_path"],
+                   vlm["launches_by_path"], seamless["launches_by_path"],
+                   seamless["decode"]["launches_by_path"],
                    lm_out["prefill"]["launches_by_path"],
                    lm_out["serve"]["launches_by_path"],
                    lm_out["decode_window"]["launches_by_path"], emb_paths]
@@ -2816,13 +3028,15 @@ def main(argv=None) -> None:
     paths["tc"]["prefill_full"] = flash_full
     paths["tc"]["prefill_full_moe"] = mixers["flash_full"]
     paths["tc"]["prefill_full_vlm"] = vlm["flash_full"]
+    paths["tc"]["prefill_full_seamless"] = seamless["flash_full"]
     paths["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
                           for fn, regs, spill in ptxas["flash_attention"]}
     a = by_label["a"]
     results.append({
         "name": "flash_attention", "max_abs_err": max(
             r["max_abs_err"] for r in flash + mixers["flash_full"]
-            + [vlm["flash_full"]] if r["max_abs_err"] is not None),
+            + [vlm["flash_full"]] + seamless["flash_full"]
+            if r["max_abs_err"] is not None),
         **{k: a[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")},
         "paths": paths, "checks": flash,
@@ -2831,7 +3045,7 @@ def main(argv=None) -> None:
                               "lm_decode_window":
                                   lm_out["decode_window"]["launches"],
                               "embedder": emb_launches, **mixer_flash,
-                              **vlm_flash},
+                              **vlm_flash, **seamless_flash},
         "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
         "lm_decode_window": lm_out["decode_window"]})
     results[0]["launches_by_path"] = topk_paths
@@ -2855,6 +3069,7 @@ def main(argv=None) -> None:
         "lm_train_resilient": resilient}))
     log("mixer paths: " + json.dumps(mixers))
     log("vlm paths: " + json.dumps(vlm))
+    log("seamless paths: " + json.dumps(seamless))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

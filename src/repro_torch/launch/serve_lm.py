@@ -4,7 +4,10 @@
         --preset ci --batch 4 --prompt-len 32 --decode-steps 16
 
 The same flags and output lines as ``repro.launch.serve_lm``, plus
-``--device`` (default ``cuda``; ``cpu`` to run without a card).
+``--device`` (default ``cuda``; ``cpu`` to run without a card).  An
+encoder-decoder arch (seamless-m4t-large-v2) is refused: the demo has no
+encoder inputs to give it (the JAX package's demo fails on it with a
+``KeyError``).
 """
 from __future__ import annotations
 
@@ -28,12 +31,25 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def check_decoder_only(cfg: ModelConfig) -> None:
+    """Raises ``ValueError`` for an encoder-decoder config: its decoder
+    cross-attends to an encoder's output over audio frames, and the demo
+    has only token prompts."""
+    if cfg.encoder_decoder:
+        raise ValueError(
+            f"serve_lm: {cfg.name} is an encoder-decoder model; its decoder "
+            "needs encoder inputs (enc_embeds), which this token-prompt demo "
+            "does not have; use models.lm.prefill with enc_embeds in the "
+            "batch, then decode_step")
+
+
 def serve(params: PyTree, cfg: ModelConfig, prompts: torch.Tensor,
           decode_steps: int) -> Dict[str, object]:
     """Replay ``prompts`` (B, S) through the decode step into caches of
     capacity S + decode_steps, then decode greedily.  Returns the logits at
     the last prompt position (B, V), the generated ids (B, decode_steps)
-    and the wall seconds of both phases."""
+    and the wall seconds of both phases.  Decoder-only models."""
+    check_decoder_only(cfg)
     dev = prompts.device
     b, s = prompts.shape
     step = make_serve_step(cfg)
@@ -68,8 +84,9 @@ def main(argv=None) -> None:
                     help="where the model runs (cuda, or cpu without a card)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    check_decoder_only(cfg)
+    dev = resolve_device(args.device)
     if args.preset == "ci":
         cfg = cfg.smoke()
     params = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),

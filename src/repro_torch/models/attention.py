@@ -1,13 +1,14 @@
-"""Grouped-query attention: full-sequence (training / prefill) through the
-``flash_attention`` kernel, and single-token decode over a ring-buffer KV
-cache.
+"""Grouped-query attention: full-sequence self- and cross-attention
+(training / prefill) through the ``flash_attention`` kernel, and
+single-token decode over a ring-buffer KV cache or, for cross-attention,
+over the encoder's precomputed K/V.
 
 The JAX package's XLA implementation of full-sequence attention
 (``blocked_attention``) is not copied: it computes the same function as the
 kernel's plain version, and the parity tests hold the port against it.  Not
 ported yet, each raising ``NotImplementedError``: the sequence-parallel
-``seq_dp`` paths (ROADMAP A6), the ``dus`` cache update and the two-tier
-decode cache (ROADMAP A5), and cross-attention (ROADMAP A4b, encoder-decoder).
+``seq_dp`` paths (ROADMAP A6), and the ``dus`` cache update and the
+two-tier decode cache (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -28,7 +29,9 @@ from repro_torch.models.common import DTYPES, ParamSpec, PyTree, rmsnorm
 ATTN_IMPLS = ("kernel", "plain")
 
 
-def attention_specs(cfg: ModelConfig) -> PyTree:
+def attention_specs(cfg: ModelConfig, cross: bool = False) -> PyTree:
+    """Projections (d, H*hd), (d, Hk*hd) x 2, (H*hd, d); with ``qk_norm``
+    also q_norm and k_norm, except for cross-attention."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     qd = cfg.n_heads * hd
     kvd = cfg.n_kv_heads * hd
@@ -39,7 +42,7 @@ def attention_specs(cfg: ModelConfig) -> PyTree:
         "wv": ParamSpec((d, kvd), dt),
         "wo": ParamSpec((qd, d), dt),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         specs["q_norm"] = ParamSpec((hd,), dt, init="ones")
         specs["k_norm"] = ParamSpec((hd,), dt, init="ones")
     return specs
@@ -64,13 +67,17 @@ def _check_supported(cfg: ModelConfig) -> None:
 # Projections
 # ---------------------------------------------------------------------------
 
-def _project_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig):
-    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,Hk,hd)."""
+def _project_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
+                 kv_x: Optional[torch.Tensor] = None):
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,Skv,Hk,hd), k and v from ``kv_x``
+    (B,Skv,D) when given (cross-attention), else from x."""
     hd = cfg.resolved_head_dim
-    b, s = x.shape[:2]
-    q = torch.matmul(x, params["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = torch.matmul(x, params["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = torch.matmul(x, params["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    kv_src = x if kv_x is None else kv_x
+    q = torch.matmul(x, params["wq"]).reshape(*x.shape[:2], cfg.n_heads, hd)
+    k = torch.matmul(kv_src, params["wk"]).reshape(*kv_src.shape[:2],
+                                                   cfg.n_kv_heads, hd)
+    v = torch.matmul(kv_src, params["wv"]).reshape(*kv_src.shape[:2],
+                                                   cfg.n_kv_heads, hd)
     if "q_norm" in params:
         q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
         k = rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
@@ -89,23 +96,27 @@ def _out_proj(params: PyTree, o: torch.Tensor, cfg: ModelConfig):
 
 def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
                   causal: bool = True, angles: Optional[torch.Tensor] = None,
+                  kv_x: Optional[torch.Tensor] = None,
                   impl: str = "kernel") -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill), x (B,S,D).
+    """Full-sequence attention (training / prefill), x (B,S,D).  With
+    ``kv_x`` (B,Skv,D), cross-attention: keys and values from ``kv_x``, no
+    RoPE, no window, not causal.
 
     ``impl="kernel"`` goes through ``ops.flash_attention`` (the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors); ``"plain"`` takes
     the plain version on any device, as a reference."""
     _check_supported(cfg)
-    q, k, v = _project_qkv(params, x, cfg)
-    if angles is not None:
+    q, k, v = _project_qkv(params, x, cfg, kv_x)
+    cross = kv_x is not None
+    if angles is not None and not cross:
         q = rope_lib.apply_rope(q, angles)
         k = rope_lib.apply_rope(k, angles)
+    causal = causal and not cross
+    window = 0 if cross else cfg.sliding_window
     if impl == "kernel":
-        o = flash_ops.flash_attention(q, k, v, causal=causal,
-                                      window=cfg.sliding_window)
+        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     elif impl == "plain":
-        o = flash_attention_ref(q, k, v, causal=causal,
-                                window=cfg.sliding_window)
+        o = flash_attention_ref(q, k, v, causal=causal, window=window)
     else:
         raise ValueError(f"attn impl {impl!r}; have {ATTN_IMPLS}")
     return _out_proj(params, o, cfg)
@@ -113,39 +124,46 @@ def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
 
 def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: int, cfg: ModelConfig,
-                     angles: Optional[torch.Tensor] = None):
+                     angles: Optional[torch.Tensor] = None,
+                     cross: bool = False):
     """One-token decode.  x (B,1,D); cache_k/v (B,S,Hk,hd) ring buffers.
 
     Returns (out (B,1,D), cache_k, cache_v).  The new token's K/V go into
     slot ``pos % S`` in place (the JAX package rewrites the cache through a
     one-hot ``where``; the values are the same and the port saves the copy),
-    so the returned caches are the ones passed in."""
+    so the returned caches are the ones passed in.  With ``cross`` the cache
+    holds the encoder's precomputed K/V: no k/v projection, no write, every
+    key attended."""
     _check_supported(cfg)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     hk, h = cfg.n_kv_heads, cfg.n_heads
     g = h // hk
     q = torch.matmul(x, params["wq"]).reshape(b, 1, h, hd)
-    k_new = torch.matmul(x, params["wk"]).reshape(b, 1, hk, hd)
-    v_new = torch.matmul(x, params["wv"]).reshape(b, 1, hk, hd)
     if "q_norm" in params:
         q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
-        k_new = rmsnorm({"scale": params["k_norm"]}, k_new, cfg.norm_eps)
     if angles is not None:
         q = rope_lib.apply_rope(q, angles)
-        k_new = rope_lib.apply_rope(k_new, angles)
+    if not cross:
+        k_new = torch.matmul(x, params["wk"]).reshape(b, 1, hk, hd)
+        v_new = torch.matmul(x, params["wv"]).reshape(b, 1, hk, hd)
+        if "k_norm" in params:
+            k_new = rmsnorm({"scale": params["k_norm"]}, k_new, cfg.norm_eps)
+        if angles is not None:
+            k_new = rope_lib.apply_rope(k_new, angles)
+        slot = pos % cache_k.shape[1]
+        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
     s = cache_k.shape[1]
-    slot = pos % s
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
     qg = q.reshape(b, 1, hk, g, hd)
     scores = (torch.einsum("bskgh,btkh->bkgst", qg, cache_k)
               / math.sqrt(hd)).float()
-    kpos = torch.arange(s, device=x.device)
-    valid = kpos <= pos                       # causal within the cache
-    if cfg.sliding_window:
-        valid &= pos - kpos < cfg.sliding_window
-    scores = scores.masked_fill(~valid, NEG_INF)
+    if not cross:
+        kpos = torch.arange(s, device=x.device)
+        valid = kpos <= pos                   # causal within the cache
+        if cfg.sliding_window:
+            valid &= pos - kpos < cfg.sliding_window
+        scores = scores.masked_fill(~valid, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1, keepdim=True)  # noqa: E741

@@ -5,8 +5,8 @@ config's repeating pattern; ``lm.py`` loops over ``n_repeats`` blocks with
 stacked parameters.
 
 Mixers ``attn``, ``mamba``, ``mlstm`` and ``slstm``; MLPs ``dense``,
-``moe`` and ``none``.  Cross-attention comes with the encoder-decoder
-stack, which is not ported yet (ROADMAP A4b; ``lm`` refuses it).
+``moe`` and ``none``.  An encoder-decoder's decoder layers (``cross``) add
+cross-attention to the encoder's output between the mixer and the MLP.
 """
 from __future__ import annotations
 
@@ -22,13 +22,17 @@ _MIXER_SPECS = {"attn": attention.attention_specs, "mamba": mamba.mamba_specs,
                 "mlstm": xlstm.mlstm_specs, "slstm": xlstm.slstm_specs}
 
 
-def layer_specs(cfg: ModelConfig, spec: LayerSpec) -> PyTree:
+def layer_specs(cfg: ModelConfig, spec: LayerSpec,
+                cross: bool = False) -> PyTree:
     if spec.mixer not in _MIXER_SPECS:
         raise ValueError(spec.mixer)
     d = cfg.d_model
     dt = DTYPES[cfg.param_dtype]
     out: Dict[str, Any] = {"norm1": rmsnorm_specs(d, dt),
                            spec.mixer: _MIXER_SPECS[spec.mixer](cfg)}
+    if cross:
+        out["norm_cross"] = rmsnorm_specs(d, dt)
+        out["cross_attn"] = attention.attention_specs(cfg, cross=True)
     if spec.mlp == "dense":
         out["norm2"] = rmsnorm_specs(d, dt)
         out["mlp"] = mlp.mlp_specs(cfg)
@@ -38,9 +42,9 @@ def layer_specs(cfg: ModelConfig, spec: LayerSpec) -> PyTree:
     return out
 
 
-def block_specs(cfg: ModelConfig) -> Tuple[PyTree, ...]:
+def block_specs(cfg: ModelConfig, cross: bool = False) -> Tuple[PyTree, ...]:
     """One period: a tuple of per-position layer spec trees."""
-    return tuple(layer_specs(cfg, s) for s in cfg.pattern)
+    return tuple(layer_specs(cfg, s, cross=cross) for s in cfg.pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -62,9 +66,11 @@ def _mlp_out(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
 
 def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
               spec: LayerSpec, angles: Optional[torch.Tensor], causal: bool,
+              enc_out: Optional[torch.Tensor] = None,
               attn_impl: str = "kernel") -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
-    """Returns (h, aux_loss)."""
+    """Returns (h, aux_loss).  A layer with cross-attention attends to
+    ``enc_out`` (B, S_enc, D) after its mixer, when given."""
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
     if spec.mixer == "attn":
         mixed = attention.attention_fwd(params["attn"], x, cfg,
@@ -79,6 +85,11 @@ def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(spec.mixer)
     h = h + mixed
+    if "cross_attn" in params and enc_out is not None:
+        xc = rmsnorm(params["norm_cross"], h, cfg.norm_eps)
+        h = h + attention.attention_fwd(params["cross_attn"], xc, cfg,
+                                        causal=False, kv_x=enc_out,
+                                        impl=attn_impl)
     out, aux = _mlp_out(params, h, cfg, spec)
     if out is not None:
         h = h + out
@@ -89,13 +100,14 @@ def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
 
 def block_fwd(params_tuple: Tuple[PyTree, ...], h: torch.Tensor,
               cfg: ModelConfig, angles: Optional[torch.Tensor], causal: bool,
+              enc_out: Optional[torch.Tensor] = None,
               attn_impl: str = "kernel") -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
     """Returns (h, the aux losses of the period's layers summed)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pos, spec in enumerate(cfg.pattern):
         h, a = layer_fwd(params_tuple[pos], h, cfg, spec, angles, causal,
-                         attn_impl=attn_impl)
+                         enc_out=enc_out, attn_impl=attn_impl)
         aux = aux + a
     return h, aux
 
@@ -105,25 +117,32 @@ def block_fwd(params_tuple: Tuple[PyTree, ...], h: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                      seq: int) -> Dict[str, Tuple[Tuple[int, ...],
-                                                   torch.dtype]]:
+                      seq: int, cross_len: int = 0
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Per-layer decode state as ``{name: (shape, dtype)}``: the reference's
     shapes and dtypes (the recurrent states float32, Mamba's conv window in
-    the activations' dtype)."""
+    the activations' dtype); with ``cross_len``, the encoder's K/V for
+    cross-attention, ``cross_k`` and ``cross_v`` (B, cross_len, Hk, hd)."""
     if spec.mixer == "attn":
         kv = ((batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim),
               DTYPES[cfg.dtype])
-        return {"k": kv, "v": kv}
-    if spec.mixer == "mamba":
-        return mamba.mamba_cache_specs(cfg, batch)
-    if spec.mixer == "mlstm":
+        out = {"k": kv, "v": kv}
+    elif spec.mixer == "mamba":
+        out = mamba.mamba_cache_specs(cfg, batch)
+    elif spec.mixer == "mlstm":
         hd = cfg.mlstm_inner // cfg.n_heads
-        return {"c": ((batch, cfg.n_heads, hd, hd), torch.float32),
-                "n": ((batch, cfg.n_heads, hd), torch.float32)}
-    if spec.mixer == "slstm":
-        return {name: ((batch, cfg.d_model), torch.float32)
-                for name in ("c", "n", "m", "h")}
-    raise ValueError(spec.mixer)
+        out = {"c": ((batch, cfg.n_heads, hd, hd), torch.float32),
+               "n": ((batch, cfg.n_heads, hd), torch.float32)}
+    elif spec.mixer == "slstm":
+        out = {name: ((batch, cfg.d_model), torch.float32)
+               for name in ("c", "n", "m", "h")}
+    else:
+        raise ValueError(spec.mixer)
+    if cross_len:
+        ckv = ((batch, cross_len, cfg.n_kv_heads, cfg.resolved_head_dim),
+               DTYPES[cfg.dtype])
+        out["cross_k"], out["cross_v"] = ckv, ckv
+    return out
 
 
 def layer_decode(params: PyTree, h: torch.Tensor, cache: PyTree, pos: int,
@@ -157,6 +176,12 @@ def layer_decode(params: PyTree, h: torch.Tensor, cache: PyTree, pos: int,
     for name, value in new.items():
         cache[name].copy_(value)
     h = h + mixed
+    if "cross_attn" in params:
+        xc = rmsnorm(params["norm_cross"], h, cfg.norm_eps)
+        mixed, _, _ = attention.attention_decode(
+            params["cross_attn"], xc, cache["cross_k"], cache["cross_v"],
+            pos, cfg, cross=True)
+        h = h + mixed
     out, _ = _mlp_out(params, h, cfg, spec)
     if out is not None:
         h = h + out

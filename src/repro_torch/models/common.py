@@ -211,6 +211,22 @@ def rmsnorm(params: PyTree, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_specs(d: int, dtype: torch.dtype) -> PyTree:
+    return {"scale": ParamSpec((d,), dtype, init="ones"),
+            "bias": ParamSpec((d,), dtype, init="zeros")}
+
+
+def layernorm(params: PyTree, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """In float32 with the population variance (``jnp.var``), cast back to
+    x's dtype (``repro.models.common.layernorm``)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * params["scale"].float() + params["bias"].float()
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Misc
 # ---------------------------------------------------------------------------

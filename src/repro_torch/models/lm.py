@@ -1,12 +1,14 @@
-"""Unified decoder-only LM built from ``repro_torch.models.blocks``: dense,
+"""Unified LM built from ``repro_torch.models.blocks``: decoder-only (dense,
 MoE, hybrid (Mamba + attention), xLSTM and vision-language (qwen2-vl: M-RoPE
-and a prefix of precomputed patch embeddings) models.
+and a prefix of precomputed patch embeddings)) and encoder-decoder
+(seamless: a bidirectional encoder over precomputed frame embeddings, the
+decoder's layers cross-attending to its output).
 
 Parameters have the JAX package's layout: per-position trees stacked over
-``n_repeats`` on a leading axis; the port loops over the repeats in Python
-(PyTorch runs eagerly; nothing needs ``lax.scan``).  No mesh constraints:
-the port runs on one device.  The encoder-decoder stack (seamless) is not
-ported yet (ROADMAP A4b) and raises.
+``n_repeats`` (the encoder's over ``n_encoder_layers``) on a leading axis;
+the port loops over the stacked layers in Python (PyTorch runs eagerly;
+nothing needs ``lax.scan``).  No mesh constraints: the port runs on one
+device.
 
 ``lm_loss`` trains: with ``cfg.remat == "full"`` each block is
 rematerialised in the backward pass (``torch.utils.checkpoint``, the JAX
@@ -22,23 +24,17 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, rope as rope_lib
 from repro_torch.models.common import (DTYPES, ParamSpec, PyTree,
                                        init_params, params_from_jax, rmsnorm,
                                        rmsnorm_specs, stack_specs, take_layer,
-                                       unstack_layers)
+                                       tree_leaves, unstack_layers)
 
-__all__ = ["model_specs", "init_model", "params_from_jax", "forward_hidden",
-           "lm_loss", "lm_logits", "init_cache", "decode_step", "prefill"]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder stack is not ported yet: "
-            "ROADMAP A4b")
+__all__ = ["model_specs", "init_model", "params_from_jax", "encode",
+           "forward_hidden", "lm_loss", "lm_logits", "cache_specs",
+           "init_cache", "fill_cross_caches", "decode_step", "prefill"]
 
 
 # ---------------------------------------------------------------------------
@@ -46,18 +42,23 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def model_specs(cfg: ModelConfig) -> PyTree:
-    _check_supported(cfg)
     d = cfg.d_model
     v = cfg.padded_vocab
     dt = DTYPES[cfg.param_dtype]
     specs: Dict[str, Any] = {
         "embed": ParamSpec((v, d), dt),
-        "blocks": tuple(stack_specs(t, cfg.n_repeats)
-                        for t in blocks.block_specs(cfg)),
+        "blocks": tuple(stack_specs(t, cfg.n_repeats) for t in
+                        blocks.block_specs(cfg, cross=cfg.encoder_decoder)),
         "final_norm": rmsnorm_specs(d, dt),
     }
     if not cfg.tie_embeddings:
         specs["unembed"] = ParamSpec((d, v), dt)
+    if cfg.encoder_decoder:
+        enc_layer = blocks.layer_specs(cfg, LayerSpec("attn", "dense"))
+        specs["encoder"] = {
+            "blocks": (stack_specs(enc_layer, cfg.n_encoder_layers),),
+            "final_norm": rmsnorm_specs(d, dt),
+        }
     return specs
 
 
@@ -126,19 +127,23 @@ def _angles_for(cfg: ModelConfig, batch: int, seq: int, device,
 
 
 def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
-                causal: bool, attn_impl: str = "kernel"):
-    """Loop over the n_repeats stacked blocks; returns (h, aux_loss), the
+                causal: bool, enc_out: Optional[torch.Tensor] = None,
+                attn_impl: str = "kernel"):
+    """Loop over the stacked blocks of ``params["blocks"]`` (the decoder's
+    n_repeats, the encoder's n_encoder_layers: the leaves' leading axis,
+    which the JAX package's ``lax.scan`` walks); returns (h, aux_loss), the
     aux loss summed over blocks."""
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for layer in unstack_layers(params["blocks"], cfg.n_repeats):
+    n = tree_leaves(params["blocks"])[0].shape[0]
+    for layer in unstack_layers(params["blocks"], n):
         if remat:
             h, aux = checkpoint(blocks.block_fwd, layer, h, cfg, angles,
-                                causal, attn_impl=attn_impl,
+                                causal, enc_out=enc_out, attn_impl=attn_impl,
                                 use_reentrant=False)
         else:
             h, aux = blocks.block_fwd(layer, h, cfg, angles, causal,
-                                      attn_impl=attn_impl)
+                                      enc_out=enc_out, attn_impl=attn_impl)
         aux_total = aux_total + aux
     return h, aux_total
 
@@ -158,6 +163,18 @@ def _merge_vision(cfg: ModelConfig, h: torch.Tensor,
     return torch.where(mask, vis, h)
 
 
+def encode(params: PyTree, enc_embeds: torch.Tensor, cfg: ModelConfig,
+           attn_impl: str = "kernel") -> torch.Tensor:
+    """Encoder stack (seamless): frame embeddings (B, S_enc, D), cast to
+    ``cfg.dtype``, through the encoder's layers (RoPE over positions
+    0..S_enc-1, bidirectional attention) and its final norm."""
+    b, s = enc_embeds.shape[:2]
+    h, _ = _run_blocks(params["encoder"], enc_embeds.to(DTYPES[cfg.dtype]),
+                       cfg, _angles_for(cfg, b, s, enc_embeds.device),
+                       causal=False, attn_impl=attn_impl)
+    return rmsnorm(params["encoder"]["final_norm"], h, cfg.norm_eps)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -166,19 +183,21 @@ def forward_hidden(params: PyTree, batch: Dict[str, torch.Tensor],
                    cfg: ModelConfig, attn_impl: str = "kernel"):
     """Returns (final hidden states (B,S,D), aux_loss): the MoE routers'
     load-balancing loss summed over layers, 0 without MoE.  batch: tokens
-    (B, S), and for a vision model optionally vision_embeds (B, V, D),
-    which replace the first V positions' token embeddings."""
-    _check_supported(cfg)
-    if "enc_embeds" in batch:
-        raise NotImplementedError(
-            "encoder inputs are not ported yet: ROADMAP A4b")
+    (B, S); for a vision model optionally vision_embeds (B, V, D), which
+    replace the first V positions' token embeddings; for an
+    encoder-decoder enc_embeds (B, S_enc, D), the encoder's input, which
+    it needs (a ``KeyError`` without them, as in the JAX package)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = _embed_tokens(params, tokens)
     h = _merge_vision(cfg, h, batch.get("vision_embeds"))
+    enc_out = None
+    if cfg.encoder_decoder:
+        enc_out = encode(params, batch["enc_embeds"], cfg,
+                         attn_impl=attn_impl)
     angles = _angles_for(cfg, b, s, tokens.device)
     h, aux = _run_blocks(params, h, cfg, angles, causal=True,
-                         attn_impl=attn_impl)
+                         enc_out=enc_out, attn_impl=attn_impl)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
 
@@ -222,21 +241,45 @@ def lm_logits(params: PyTree, batch: Dict[str, torch.Tensor],
 # Serving: prefill + single-token decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int,
-               device=None) -> PyTree:
-    """Zeroed decode caches: a tuple over pattern positions, each a dict of
-    tensors with a leading ``n_repeats`` axis (attention K/V ring buffers of
-    ``seq`` slots, Mamba, mLSTM and sLSTM states), on ``device`` (CUDA
-    unless the caller asks for another)."""
-    _check_supported(cfg)
-    device = resolve_device(device)
+def cache_specs(cfg: ModelConfig, batch: int, seq: int,
+                cross_len: int = 0) -> PyTree:
+    """Stacked decode caches as ``{name: (shape, dtype)}``: a tuple over
+    pattern positions, each shape with a leading ``n_repeats`` axis; an
+    encoder-decoder's layers also hold ``cross_len`` encoder positions of
+    cross-attention K/V."""
     out = []
     for spec in cfg.pattern:
-        layer = blocks.layer_cache_specs(cfg, spec, batch, seq)
-        out.append({name: torch.zeros((cfg.n_repeats,) + shape, dtype=dt,
-                                      device=device)
+        layer = blocks.layer_cache_specs(
+            cfg, spec, batch, seq, cross_len if cfg.encoder_decoder else 0)
+        out.append({name: ((cfg.n_repeats,) + shape, dt)
                     for name, (shape, dt) in layer.items()})
     return tuple(out)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, cross_len: int = 0,
+               device=None) -> PyTree:
+    """Zeroed decode caches of :func:`cache_specs`: a tuple over pattern
+    positions, each a dict of tensors with a leading ``n_repeats`` axis
+    (attention K/V ring buffers of ``seq`` slots, Mamba, mLSTM and sLSTM
+    states, cross-attention K/V), on ``device`` (CUDA unless the caller
+    asks for another)."""
+    device = resolve_device(device)
+    return tuple({name: torch.zeros(shape, dtype=dt, device=device)
+                  for name, (shape, dt) in layer.items()}
+                 for layer in cache_specs(cfg, batch, seq, cross_len))
+
+
+def fill_cross_caches(params: PyTree, caches: PyTree,
+                      enc_out: torch.Tensor) -> None:
+    """Writes every decoder layer's cross-attention K/V, the encoder's
+    output ``enc_out`` (B, S_enc, D) projected by the layers' stacked
+    ``wk`` and ``wv`` at once, into the caches of :func:`init_cache` (with
+    ``cross_len`` S_enc), as the JAX package's ``prefill`` computes them."""
+    for layer, cache in zip(params["blocks"], caches):
+        for w, name in (("wk", "cross_k"), ("wv", "cross_v")):
+            kv = torch.einsum("bsd,rde->rbse", enc_out,
+                              layer["cross_attn"][w])
+            cache[name].copy_(kv.reshape(cache[name].shape))
 
 
 def decode_step(params: PyTree, caches: PyTree, token: torch.Tensor,
@@ -263,12 +306,21 @@ def prefill(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     :func:`decode_step` (exact), materializing decode caches of capacity
     ``cache_len``.  Returns (logits (B,S,V), caches).
 
-    Only ``batch["tokens"]`` is replayed, as in the JAX package: a vision
-    model's ``vision_embeds`` are ignored and its prefix positions take the
-    decode positions (negative below V - 1), not the vision grid."""
+    An encoder-decoder first encodes ``batch["enc_embeds"]`` and fills every decoder layer's cross-attention
+    K/V from the encoder's output.  Only ``batch["tokens"]`` is replayed,
+    as in the JAX package: a vision model's ``vision_embeds`` are ignored
+    and its prefix positions take the decode positions (negative below
+    V - 1), not the vision grid."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    caches = init_cache(cfg, b, cache_len, device=tokens.device)
+    enc_out = None
+    if cfg.encoder_decoder:
+        enc_out = encode(params, batch["enc_embeds"], cfg)
+    caches = init_cache(cfg, b, cache_len,
+                        0 if enc_out is None else enc_out.shape[1],
+                        device=tokens.device)
+    if enc_out is not None:
+        fill_cross_caches(params, caches, enc_out)
     logits = []
     for i in range(s):
         lg, caches = decode_step(params, caches, tokens[:, i:i + 1], i, cfg)

@@ -240,6 +240,9 @@ def _assert_attention_close(got, q, k, v, causal, window, path):
     (1, 160, 160, 4, 2, 32, True, 0, torch.bfloat16, "tc"),     # hd < 64
     (1, 1024, 1024, 28, 4, 128, True, 0, torch.bfloat16, "tc"),  # qwen2-vl
     (2, 300, 300, 7, 1, 64, True, 0, torch.bfloat16, "tc"),     # GQA 7
+    # seamless: bidirectional MHA at hd 64, and a cross shape, Skv != S
+    (1, 1024, 1024, 16, 16, 64, False, 0, torch.bfloat16, "tc"),
+    (1, 700, 1300, 16, 16, 64, False, 0, torch.bfloat16, "tc"),
     (512, 8, 8, 4, 4, 64, False, 0, torch.float32, "short"),    # embedder
     (300, 1, 1, 4, 4, 64, False, 0, torch.float32, "short"),    # S = 1
     (300, 1, 1, 4, 4, 64, False, 0, torch.bfloat16, "short"),
@@ -582,3 +585,39 @@ def test_vision_model_on_the_card_matches_the_cpu(cuda, heads):
     (l0, r0), (l1, r1) = out
     torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(r1, r0, rtol=1e-4, atol=1e-4)
+
+
+def test_encoder_decoder_on_the_card_matches_the_cpu(cuda):
+    """seamless's smoke model from the same seeded float32 weights, 40
+    encoder frames against a prompt of 48 tokens: ``lm_logits`` (encoder,
+    decoder, cross-attention through the kernel) and a replay ``prefill``
+    (the cross caches from the encoder's output) then 4 decode steps, on
+    the card against the CPU (TF32 off), within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("seamless-m4t-large-v2").smoke()
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 48),
+                                     generator=gen),
+             "enc_embeds": torch.randn(2, 40, cfg.d_model, generator=gen)}
+    nxt = torch.randint(0, cfg.vocab_size, (2, 4), generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for dev in ("cpu", cuda):
+            p = _tree_to(params, dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            with torch.no_grad():
+                logits = lm.lm_logits(p, b, cfg)
+                replay, caches = lm.prefill(p, b, cfg, 52)
+                steps = [lm.decode_step(p, caches, nxt[:, t:t + 1].to(dev),
+                                        48 + t, cfg)[0] for t in range(4)]
+            out.append([x.cpu() for x in (logits, replay,
+                                          torch.cat(steps, 1))])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

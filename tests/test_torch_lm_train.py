@@ -76,7 +76,7 @@ def _names_jax(tree):
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "llama3.2-1b",
                                   "qwen3-1.7b", "olmoe-1b-7b",
-                                  "qwen2-vl-7b"])
+                                  "qwen2-vl-7b", "seamless-m4t-large-v2"])
 def test_lm_loss_and_grads_match_jax(arch):
     """h2o-danube at S = 128 so that its smoke window of 64 bites; llama
     (tied embeddings) and qwen3 (qk-norm) for the other branches; olmoe for
@@ -84,9 +84,15 @@ def test_lm_loss_and_grads_match_jax(arch):
     leaf's gradient, the routers' included; qwen2-vl with vision
     embeddings over its first 16 positions, whose token ids (one id, used
     nowhere else) get an embedding gradient of exactly zero in both
-    packages."""
+    packages; seamless with 96 encoder frames against 128 tokens, the
+    encoder's and the cross-attention's leaves among those held."""
     cfg_j, pj, cfg, pt = _model(arch)
     bj, bt = _batch(cfg, 2, 128, seed=1)
+    if cfg.encoder_decoder:
+        enc = np.random.default_rng(3).normal(
+            size=(2, 96, cfg.d_model)).astype(np.float32)
+        bj = dict(bj, enc_embeds=jnp.asarray(enc))
+        bt = dict(bt, enc_embeds=torch.from_numpy(enc))
     prefix_id = cfg.vocab_size - 1
     if cfg.vision_tokens:
         vt = cfg.vision_tokens
@@ -114,6 +120,9 @@ def test_lm_loss_and_grads_match_jax(arch):
     for name, g, w in zip(names, grads, jax.tree.leaves(gj)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-6, err_msg=name)
+    if cfg.encoder_decoder:
+        assert any(n.startswith("encoder/") for n in names)
+        assert any("/cross_attn/" in n for n in names)
     if cfg.vision_tokens:
         g_embed = grads[names.index("embed")]
         assert not g_embed[prefix_id].any()

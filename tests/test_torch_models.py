@@ -3,8 +3,9 @@ plain version (the CPU path of ``ops.flash_attention``) against the JAX
 reference and the Pallas kernel in interpret mode; the configs, parameter
 layout and initialisation, RoPE and RMSNorm; ``lm_logits``, ``decode_step``
 and replay ``prefill`` with JAX weights carried across by
-``params_from_jax``; the transformer embedder; ``serve_lm``; and the paths
-that are not ported yet, which raise.
+``params_from_jax`` (the encoder-decoder with encoder inputs of another
+length than the prompt); the transformer embedder; ``serve_lm``; and the
+paths that are not ported yet, which raise.
 
 Inputs come from seeded numpy.  Tolerances: attention 2e-3 float32 and
 3e-2 bfloat16, as the JAX package's kernel test (tests/test_kernels.py);
@@ -254,7 +255,7 @@ def _flat_specs(tree, path=""):
                                   "qwen3-1.7b", "tasti-embedder",
                                   "olmoe-1b-7b", "qwen3-moe-30b-a3b",
                                   "xlstm-350m", "jamba-1.5-large-398b",
-                                  "qwen2-vl-7b"])
+                                  "qwen2-vl-7b", "seamless-m4t-large-v2"])
 def test_parameter_layout_matches_jax(arch):
     """Full-width specs (no allocation): the same tree, shapes and dtypes."""
     assert _flat_specs(lm.model_specs(get_config(arch))) == \
@@ -281,7 +282,8 @@ def test_init_draws_like_jax():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rope_and_rmsnorm_match_jax(dtype):
     """apply_rope casts cos/sin to x's dtype before multiplying, so bf16
-    rounds as in the reference: bit-equal here."""
+    rounds as in the reference: bit-equal here.  RMSNorm and LayerNorm
+    (float32 statistics, population variance) at the same tolerance."""
     rng = np.random.default_rng(1)
     xj, xt = _pair(rng.normal(size=(2, 16, 4, 120)), dtype)
     pos = np.arange(16)[None]
@@ -296,6 +298,15 @@ def test_rope_and_rmsnorm_match_jax(dtype):
     got = _f32(common.rmsnorm({"scale": st}, xt, 1e-6))
     want = _f32(jax_common.rmsnorm({"scale": sj}, xj, 1e-6))
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    bj, bt = _pair(rng.normal(size=(120,)), dtype)
+    xj, xt = _pair(rng.normal(3.0, 2.0, size=(2, 16, 4, 120)), dtype)
+    got = common.layernorm({"scale": st, "bias": bt}, xt, 1e-5)
+    want = jax_common.layernorm({"scale": sj, "bias": bj}, xj, 1e-5)
+    assert got.dtype == xt.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    specs = common.layernorm_specs(120, _TORCH_DT[dtype])
+    assert _flat_specs(specs) == _flat_specs(
+        jax_common.layernorm_specs(120, _JAX_DT[dtype]))
 
 
 # the smoke sections (8, 4, 4) on hd 32 with 16 vision tokens on 4 x 4, and
@@ -375,9 +386,12 @@ def test_params_from_jax_keeps_bfloat16_bits():
 
 # smoke variants beside the configs' own: qwen2-vl with 7 query heads on
 # one KV head, so that a GQA group of 7 (qwen2-vl-7b's 28 on 4) runs
-# through the whole model
+# through the whole model; seamless with an encoder one layer deeper than
+# its decoder, so that each stack runs its own depth
 VARIANTS = {"qwen2-vl-7b-gqa7": ("qwen2-vl-7b",
-                                 {"n_heads": 7, "n_kv_heads": 1})}
+                                 {"n_heads": 7, "n_kv_heads": 1}),
+            "seamless-m4t-large-v2-enc3": ("seamless-m4t-large-v2",
+                                           {"n_encoder_layers": 3})}
 
 
 def _model(arch, seed=0):
@@ -392,6 +406,21 @@ def _vision(cfg, b, seed):
     """Seeded patch embeddings (B, V, D) as numpy, for a vision model."""
     return np.random.default_rng(seed).normal(
         size=(b, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+
+
+def _inputs(cfg, toks, seed, enc_len):
+    """The batch of ``toks`` (B, S) for both packages, with a vision
+    model's patch embeddings, or an encoder-decoder's ``enc_len`` seeded
+    frame embeddings (another length than the prompt, as speech has)."""
+    extra = {}
+    if cfg.vision_tokens:
+        extra["vision_embeds"] = _vision(cfg, toks.shape[0], seed)
+    if cfg.encoder_decoder:
+        extra["enc_embeds"] = np.random.default_rng(seed).normal(
+            size=(toks.shape[0], enc_len, cfg.d_model)).astype(np.float32)
+    extra["tokens"] = toks
+    return ({k: jnp.asarray(v) for k, v in extra.items()},
+            {k: torch.from_numpy(v) for k, v in extra.items()})
 
 
 def _one_ulp_witness(pj, run, base):
@@ -415,23 +444,25 @@ def _one_ulp_witness(pj, run, base):
     ("qwen3-moe-30b-a3b", "xla"), ("xlstm-350m", "xla"),
     ("jamba-1.5-large-398b", "xla"),
     ("qwen2-vl-7b", "xla"), ("qwen2-vl-7b", "pallas_interpret"),
-    ("qwen2-vl-7b-gqa7", "xla"), ("qwen2-vl-7b-gqa7", "pallas_interpret")])
+    ("qwen2-vl-7b-gqa7", "xla"), ("qwen2-vl-7b-gqa7", "pallas_interpret"),
+    ("seamless-m4t-large-v2", "xla"),
+    ("seamless-m4t-large-v2", "pallas_interpret"),
+    ("seamless-m4t-large-v2-enc3", "xla")])
 def test_lm_logits_match_jax(arch, jax_impl):
     """h2o-danube at S = 128 so that its smoke window of 64 bites; llama
     (tied embeddings) and qwen3 (qk-norm) for the other branches; the MoE
     models (olmoe MHA, qwen3-moe GQA), xLSTM (mLSTM and sLSTM) and jamba
     (Mamba, attention, dense and MoE layers); qwen2-vl (M-RoPE, 16 vision
     embeddings merged over the first positions) and its 7-heads-on-1
-    variant.  1e-4, or for xlstm-350m twice the reference's one-ulp
-    witness (``_one_ulp_witness``) where that is larger."""
+    variant; seamless (a bidirectional encoder over 96 frame embeddings,
+    the decoder's 128 tokens cross-attending to them: S != Skv; without
+    them a ``KeyError``, as in the JAX package), also with 3 encoder
+    layers against 2 decoder layers.  1e-4,
+    or for xlstm-350m twice the reference's one-ulp witness
+    (``_one_ulp_witness``) where that is larger."""
     cfg_j, pj, cfg, pt = _model(arch)
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
-    batch_j = {"tokens": jnp.asarray(toks)}
-    batch = {"tokens": torch.from_numpy(toks)}
-    if cfg.vision_tokens:
-        vis = _vision(cfg, 2, seed=3)
-        batch_j["vision_embeds"] = jnp.asarray(vis)
-        batch["vision_embeds"] = torch.from_numpy(vis)
+    batch_j, batch = _inputs(cfg, toks, seed=3, enc_len=96)
 
     def reference(params):
         return np.asarray(jax_lm.lm_logits(params, batch_j, cfg_j,
@@ -447,6 +478,9 @@ def test_lm_logits_match_jax(arch, jax_impl):
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
     plain = make_prefill_step(cfg, attn_impl="plain")(pt, batch)
     np.testing.assert_array_equal(plain.numpy(), got.numpy())
+    if cfg.encoder_decoder:
+        with pytest.raises(KeyError, match="enc_embeds"):
+            step(pt, {"tokens": batch["tokens"]})
 
 
 def test_decode_and_replay_prefill_match_jax():
@@ -499,7 +533,8 @@ def test_decode_ring_wraps_like_jax():
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-30b-a3b",
                                   "xlstm-350m", "jamba-1.5-large-398b",
-                                  "qwen2-vl-7b", "qwen2-vl-7b-gqa7"])
+                                  "qwen2-vl-7b", "qwen2-vl-7b-gqa7",
+                                  "seamless-m4t-large-v2"])
 def test_decode_of_every_mixer_matches_jax(arch):
     """Decode steps against the reference's (1e-4; for xlstm-350m twice the
     reference's one-ulp witness of the same steps where that is larger),
@@ -509,13 +544,20 @@ def test_decode_of_every_mixer_matches_jax(arch):
     its 16 vision tokens, and its replay ``prefill`` is held against the
     reference's with vision embeddings in the batch, which both ignore:
     their prefix takes the decode positions (negative), not the grid, so
-    the replay is not the parallel forward there."""
+    the replay is not the parallel forward there.  seamless's decode needs
+    the cross-attention caches that only ``prefill`` builds (from 12
+    encoder frames against a prompt of 16): the reference's logits come
+    from its ``prefill``, and the cross caches are held to its (1e-4)."""
     cfg_j, pj, cfg, pt = _model(arch, seed=1)
     b, s = 2, 24 if cfg.vision_tokens else 16
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s))
+    batch_j, batch = _inputs(cfg, toks, seed=4, enc_len=12)
     jax_step = jax.jit(jax_lm.decode_step, static_argnums=4)
 
     def reference(params):
+        if cfg.encoder_decoder:
+            logits, cj = jax_lm.prefill(params, batch_j, cfg_j, s)
+            return np.asarray(logits), cj
         cj = jax_lm.init_cache(cfg_j, b, s)
         logits = []
         for t in range(s):
@@ -525,13 +567,8 @@ def test_decode_of_every_mixer_matches_jax(arch):
         return np.stack(logits, 1), cj
 
     want, cj = reference(pj)
-    batch = {"tokens": torch.from_numpy(toks)}
     if cfg.vision_tokens:
-        vis = _vision(cfg, b, seed=4)
-        batch["vision_embeds"] = torch.from_numpy(vis)
-        replay, _ = jax_lm.prefill(pj, {"tokens": jnp.asarray(toks),
-                                        "vision_embeds": jnp.asarray(vis)},
-                                   cfg_j, s)
+        replay, _ = jax_lm.prefill(pj, batch_j, cfg_j, s)
         np.testing.assert_allclose(np.asarray(replay), want, rtol=1e-4,
                                    atol=1e-4)
     with torch.no_grad():
@@ -547,12 +584,14 @@ def test_decode_of_every_mixer_matches_jax(arch):
             ref = np.asarray(cj[pos][name], np.float32)
             assert state.dtype == _TORCH_DT[str(cj[pos][name].dtype)]
             assert tuple(state.shape) == ref.shape
-            if spec.mixer != "attn":
+            if spec.mixer != "attn" or name.startswith("cross_"):
                 np.testing.assert_allclose(_f32(state), ref, rtol=1e-4,
                                            atol=1e-4, err_msg=name)
+    if cfg.encoder_decoder:
+        assert ct[0]["cross_k"].shape[2] == 12
     if cfg.vision_tokens:
         return
-    par = make_prefill_step(cfg)(pt, {"tokens": torch.from_numpy(toks)})
+    par = make_prefill_step(cfg)(pt, batch)
     np.testing.assert_allclose(got.numpy(), par.numpy(), rtol=2e-2,
                                atol=2e-2)
 
@@ -567,6 +606,26 @@ def test_serve_lm_cli_on_cpu(capsys, arch):
                              "prefill=8 tok")
     assert out[1].startswith("[serve] sample generation ids: [")
     assert len(eval(out[1].split(": ", 1)[1])) == 4
+
+
+def test_serve_lm_refuses_an_encoder_decoder_arch(monkeypatch):
+    """The JAX package's demo gives seamless no encoder inputs and fails
+    in its first decode step (``KeyError: 'cross_k'``: its caches have no
+    cross-attention K/V); the port's refuses the arch before it builds
+    anything, saying why, and so does ``serve``."""
+    from repro.launch import serve_lm as jax_serve_lm
+    monkeypatch.setattr("sys.argv", ["serve_lm", "--arch",
+                                     "seamless-m4t-large-v2", "--batch", "1",
+                                     "--prompt-len", "2",
+                                     "--decode-steps", "1"])
+    with pytest.raises(KeyError, match="cross_k"):
+        jax_serve_lm.main()
+    with pytest.raises(ValueError, match="encoder-decoder.*enc_embeds"):
+        serve_lm.main(["--arch", "seamless-m4t-large-v2", "--device",
+                       "cpu"])
+    cfg = get_config("seamless-m4t-large-v2").smoke()
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        serve_lm.serve({}, cfg, torch.zeros(1, 2, dtype=torch.long), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -617,13 +676,6 @@ def test_build_tasti_takes_the_transformer_embedder():
 # ---------------------------------------------------------------------------
 # not ported yet
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch,what", [
-    ("seamless-m4t-large-v2", "encoder")])
-def test_unported_architectures_raise(arch, what):
-    with pytest.raises(NotImplementedError, match=what):
-        lm.model_specs(get_config(arch).smoke())
-
 
 @pytest.mark.parametrize("field,value,roadmap", [
     ("shard_strategy", "seq_dp", "A6"), ("decode_cache_update", "dus", "A5"),

@@ -271,6 +271,17 @@ assert make_prefill_step(cfg)(p, {"tokens": toks[:, :32],
     (1, 32, cfg.padded_vocab)
 assert serve_lm.serve(p, cfg, toks[:, :20], decode_steps=2)[
     "generated"].shape == (1, 2)
+# the encoder-decoder: frame embeddings of another length than the prompt
+cfg = get_config("seamless-m4t-large-v2").smoke()
+p = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+batch = {"tokens": toks[:, :32], "enc_embeds": torch.randn(1, 24, cfg.d_model)}
+par = make_prefill_step(cfg)(p, batch)
+assert par.shape == (1, 32, cfg.padded_vocab)
+with torch.no_grad():
+    replay, caches = lm.prefill(p, batch, cfg, 34)
+    lg, caches = lm.decode_step(p, caches, toks[:, 32:33], 32, cfg)
+assert caches[0]["cross_k"].shape[2] == 24 and lg.shape == (1, 1, 512)
+assert float((replay - par).abs().max()) < 2e-2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
