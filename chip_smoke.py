@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full width: 1M frames, 7,000 reps,
-                                     # h2o-danube-3-4b, olmoe-1b-7b and
-                                     # qwen2-vl-7b on a 32,768-token
-                                     # prompt, qwen3-moe-30b-a3b on 8,192,
+                                     # h2o-danube-3-4b, olmoe-1b-7b,
+                                     # qwen2-vl-7b and phi3-medium-14b on
+                                     # a 32,768-token prompt,
+                                     # qwen3-moe-30b-a3b on 8,192,
                                      # seamless-m4t-large-v2 on 16,384
                                      # frames and 16,384 tokens
 
@@ -36,10 +37,17 @@
    weights) through ``make_prefill_step`` on one 32,768-token prompt, every
    attention layer through the ``flash_attention`` kernel's tc path; the
    same model on 8,192 tokens against the plain attention route, in bf16
-   and with the weights cast to float32.
+   and with the weights cast to float32, and its logits under
+   ``shard_strategy`` seq_dp and ep_seq bitwise against megatron's.
 5. lm_serve and lm_decode_window: the ``serve_lm`` path (replay prefill,
    greedy decode) at the same width, batch 4, prompt 32, 16 decode steps;
-   16 decode steps with the 4,096-key window full.
+   16 decode steps with the 4,096-key window full, repeated under
+   ``decode_cache_update="dus"`` for the same logits bit for bit.
+   lm_decode_ring: the two-tier decode cache (``decode_ring`` 256) over a
+   main cache of the same 4,096 seeded slots, 256 + 16 steps at batch 4,
+   timed in turns with the masked decode, and held against it in float32
+   (2e-3) while the ring holds every token; past 256 steps the reference
+   forgets tokens, and the distance is reported.
    tasti_t: the paper's TASTI-T build over the same records (the default
    TastiConfig: 200 pre-training steps, 3,000 FPF-mined training records,
    400 triplet steps of 256, 7,000 reps; stage seconds, launches by kernel
@@ -100,6 +108,13 @@
    48 tokens over 256 frames against the parallel forward); then the
    kernel alone at (1, 16384, 16, 64), bidirectional and causal, each head
    held against the plain version on its own.
+12. phi3-medium-14b at its published widths (40 layers, 40/10 heads, hd
+   128, seeded bf16 weights, 27.3 GiB): the kernel route against the plain
+   route at 8,192 tokens (compare_routes; float32 at 8 of the 40 layers);
+   phi3_prefill (one 32,768-token prompt through ``make_prefill_step``: 40
+   launches, all tc, with launch/analytic.py's FLOPs); then the kernel
+   alone at the prefill's shape, heads 0, 3, 4, 36 and 39 each held
+   against the plain version on that head and its KV head.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -913,12 +928,14 @@ def routing_agrees(a: list, b: list, shape) -> torch.Tensor:
 
 
 def compare_routes(cfg, params, short: dict, prefill, prefill_plain,
-                   label: str = "lm_prefill") -> dict:
+                   label: str = "lm_prefill", f32_depth: int = 0) -> dict:
     """Kernel route against plain route over the batch ``short`` (tokens,
     and a vision model's vision_embeds): in bf16 as served, with the
     keys-reversed plain route as the witness of rounding alone, and with
-    the same weights cast to float32.  A MoE model is held by the routed
-    rule (above), its flips counted."""
+    the same weights cast to float32 (with ``f32_depth``, only the first
+    that many layers, where float32 weights of all of them do not fit
+    beside the bf16 ones).  A MoE model is held by the routed rule (above),
+    its flips counted."""
     from unittest import mock
 
     from repro_torch.models import attention
@@ -943,7 +960,10 @@ def compare_routes(cfg, params, short: dict, prefill, prefill_plain,
                 lx, rx = run(prefill_plain, params)
         elif name == "f32":
             del lp
-            p32 = tree_map(lambda a: a.float(), params)
+            cut = params if not f32_depth else dict(params, blocks=tree_map(
+                lambda a: a[:f32_depth], params["blocks"]))
+            p32 = tree_map(lambda a: a.float(), cut)
+            del cut
             lp, rp = run(prefill_plain, p32)
             lx, rx = run(prefill, p32)
         else:
@@ -959,14 +979,14 @@ def compare_routes(cfg, params, short: dict, prefill, prefill_plain,
                                                  same)
                 c.update(agreeing_max_abs=amx, agreeing_mean_abs=amean)
         del lx, rx
-    del lp, rp
-    if routed:
-        del p32
+    del lp, rp, p32
     torch.cuda.empty_cache()
     whats = {"bf16": "kernel vs plain",
              "witness": "plain keys reversed vs plain",
              "bf16_pinned": "kernel with the plain route's routing vs plain",
-             "f32": "kernel vs plain, weights cast to float32",
+             "f32": "kernel vs plain, weights cast to float32" + (
+                 f", first {f32_depth} of {cfg.n_layers} layers"
+                 if f32_depth else ""),
              "f32_pinned": "kernel with the plain route's routing vs plain, "
                            "weights cast to float32"}
     for name in names:
@@ -987,17 +1007,178 @@ def compare_routes(cfg, params, short: dict, prefill, prefill_plain,
                       else (bf, f32))
     assert exact["mean_abs"] <= BF16_LOGITS_MEAN, exact
     assert exact32["max_abs"] <= F32_LOGITS_TOL, exact32
+    if f32_depth:
+        out["f32_depth"] = f32_depth
     return out
 
 
+def check_strategies(cfg, params, short: dict) -> dict:
+    """The kernel route's logits over ``short`` under ``shard_strategy``
+    ``seq_dp`` and ``ep_seq``: on one device the function of ``megatron``,
+    so the same logits, bit for bit."""
+    import dataclasses
+
+    from repro_torch.train.steps import make_prefill_step
+    base = make_prefill_step(cfg)(params, short)
+    out = {}
+    for name in ("seq_dp", "ep_seq"):
+        got = make_prefill_step(dataclasses.replace(
+            cfg, shard_strategy=name))(params, short)
+        out[name] = bool(torch.equal(got, base))
+        del got
+    log(f"shard_strategy on one device, {short['tokens'].shape[1]} tokens, "
+        f"kernel route: logits bitwise equal to megatron's: {out}")
+    assert all(out.values()), out
+    return out
+
+
+# lm_decode_ring: the two-tier decode cache at the JAX package's
+# launch/roofline.py default ring of 256 slots, after a main cache of 4,096 seeded slots; 256 steps
+# fill the ring, 16 more overwrite its oldest tokens (the reference's
+# forgetting).  Held against a masked decode over a cache of 4,096 + 272
+# slots that starts with the same 4,096, in float32 to the reference's
+# 2e-3 (tests/test_model_consistency.py) while no token is lost.
+DECODE_RING, DECODE_RING_EXTRA, DECODE_RING_TOL = 256, 16, 2e-3
+DECODE_RING_TIMED = 64
+
+
+def run_decode_ring(dev, cfg, params, main: tuple, g, profile) -> dict:
+    """lm_decode_ring: ``cfg`` (bf16 ``params``) decoding a seeded token
+    stream of 256 + 16 steps at batch 4 over the main cache ``main``
+    (4,096 slots) and a ring of 256; timed in turns with the masked decode
+    at the same cache; then both in float32, compared step by step."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
+    from repro_torch.launch import analytic
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.steps import make_serve_step
+
+    batch, ctx = main[0]["k"].shape[1], main[0]["k"].shape[2]
+    steps = DECODE_RING + DECODE_RING_EXTRA
+    rcfg = dataclasses.replace(cfg, decode_ring=DECODE_RING)
+    toks = torch.randint(1, cfg.vocab_size, (batch, steps), device=dev,
+                         generator=g)
+
+    def caches_for(c):
+        """Two-tier caches of ``c`` (main grafted, zero rings) or, without a
+        ring, a masked cache of ctx + steps slots starting with ``main``,
+        in ``c``'s dtype."""
+        out = lm.init_cache(c, batch, ctx if c.decode_ring else ctx + steps,
+                            device=dev)
+        for layer, m in zip(out, main):
+            for name in ("k", "v"):
+                layer[name][:, :, :ctx] = m[name]
+        return out
+
+    def decode(c, p, caches, n, keep=False):
+        step, kept = make_serve_step(c), []
+        for t in range(n):
+            lg, caches = step(p, caches, toks[:, t:t + 1], ctx + t)
+            if keep:
+                kept.append(lg[:, 0, :cfg.vocab_size].float())
+        return lg, kept
+
+    # bf16 as served: the two-tier decode is the phase, the masked decode
+    # at the same cache its yardstick
+    caches = caches_for(rcfg)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("lm_decode_ring", profile) as ph:
+        lg, _ = decode(rcfg, params, caches, steps)
+    launches = flash_attention.launches
+    finite = bool(torch.isfinite(lg).all())
+    peak = peak_gib()
+    ring_ms = 1e3 * ph.seconds / steps
+    main_same = all(torch.equal(layer[n], m[n]) for layer, m in
+                    zip(caches, main) for n in ("k", "v"))
+    del caches
+    log(f"phase lm_decode_ring: {cfg.name}, {steps} steps x batch {batch} "
+        f"over a main cache of {ctx} and a ring of {DECODE_RING} in "
+        f"{ph.seconds:.3f} s ({ring_ms:.2f} ms per step, "
+        f"{batch * 1e3 / ring_ms:.1f} tok/s), finite={finite}, flash "
+        f"launches {launches} (decode attention is plain, as the "
+        f"reference's), main cache unchanged={main_same}, peak device "
+        f"memory {peak:.2f} GiB")
+    assert finite and main_same and launches == 0
+    # the two-tier and the masked decode (a cache of ctx + steps slots) at
+    # the same main cache, timed in turns: masked, two-tier, two-tier,
+    # masked, DECODE_RING_TIMED steps each from fresh caches
+    turns = {"two_tier": [], "masked": []}
+    for name, c in (("masked", cfg), ("two_tier", rcfg),
+                    ("two_tier", rcfg), ("masked", cfg)):
+        caches = caches_for(c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(c, params, caches, DECODE_RING_TIMED)
+        torch.cuda.synchronize()
+        turns[name].append(1e3 * (time.perf_counter() - t0)
+                           / DECODE_RING_TIMED)
+        del caches
+    log(f"lm_decode_ring timed in turns ({DECODE_RING_TIMED} steps each, "
+        f"ms per step): masked over {ctx + steps} slots "
+        f"{turns['masked'][0]:.2f}, two-tier {turns['two_tier'][0]:.2f}, "
+        f"two-tier {turns['two_tier'][1]:.2f}, masked "
+        f"{turns['masked'][1]:.2f}")
+
+    # float32: the two against each other, step by step
+    p32 = tree_map(lambda a: a.float(), params)
+    f32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    r32 = dataclasses.replace(rcfg, dtype="float32", param_dtype="float32")
+    t0 = time.perf_counter()
+    _, two = decode(r32, p32, caches_for(r32), steps, True)
+    _, masked = decode(f32, p32, caches_for(f32), steps, True)
+    diff = torch.stack([(a - b).abs().amax() for a, b in zip(two, masked)])
+    diff = diff.cpu()
+    finite32 = all(bool(torch.isfinite(a).all()) for a in two)
+    del p32, two, masked
+    free_card()
+    held = float(diff[:DECODE_RING].max())
+    past = float(diff[DECODE_RING:].max())
+    log(f"lm_decode_ring vs the masked decode, float32: steps 0.."
+        f"{DECODE_RING - 1} max |d logits| {held:.4g} (<= "
+        f"{DECODE_RING_TOL}); steps {DECODE_RING}..{steps - 1}, where each "
+        f"new token overwrites the ring's oldest (the reference's "
+        f"forgetting), max {past:.4g}, finite={finite32}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    assert held <= DECODE_RING_TOL and finite32, (held, past)
+
+    # the analytic model's bytes a step (the JAX package's, which counts a
+    # masked update as a rewrite of the whole cache; the port writes one
+    # slot in place under either) and the bound they give
+    shape = ShapeConfig("lm_decode_ring", ctx, batch, "decode")
+    cost = {name: analytic.decode_cost(c, shape) for name, c in
+            (("two_tier", rcfg), ("masked", cfg))}
+    bounds = {name: 1e3 * c.bytes / PEAK_BYTES_S for name, c in cost.items()}
+    log("lm_decode_ring analytic bytes a step (launch/analytic.py): " + ", ".join(
+        f"{name} {c.bytes:.4e} B, {c.flops:.4e} flops, bound "
+        f"{bounds[name]:.3f} ms" for name, c in cost.items()))
+    return {"steps": steps, "batch": batch, "main_cache": ctx,
+            "ring": DECODE_RING, "seconds": ph.seconds, "step_ms": ring_ms,
+            "turns_step_ms": turns, "launches": launches,
+            "peak_gib": peak, "f32_max_abs_held": held,
+            "f32_max_abs_past_ring": past,
+            "f32_max_abs_by_step": diff.tolist(),
+            "analytic": {name: {"bytes": c.bytes, "flops": c.flops,
+                                "bound_ms": bounds[name]}
+                         for name, c in cost.items()}}
+
+
 def run_lm(dev, prefill_len: int, compare_len: int, profile):
-    """lm_prefill, lm_serve and lm_decode_window at h2o-danube-3-4b's
-    published widths."""
+    """lm_prefill, lm_serve, lm_decode_window (also under the ``dus``
+    cache update) and lm_decode_ring at h2o-danube-3-4b's published
+    widths; the shard strategies that mean megatron on one device."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          reset_launches)
     from repro_torch.launch import serve_lm
     from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     cfg = get_config("h2o-danube-3-4b")
@@ -1018,6 +1199,8 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
     # also warms cuBLAS and the kernel up before the timed prefill)
     compare = compare_routes(cfg, params, {"tokens": tokens[:, :compare_len]},
                              prefill, prefill_plain)
+    strategies = check_strategies(cfg, params,
+                                  {"tokens": tokens[:, :compare_len]})
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1073,12 +1256,15 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
     for layer in caches:
         for t in layer.values():
             t.normal_(generator=g)
+    seeded = tree_map(lambda a: a.clone(), caches)
     step = make_serve_step(cfg)
     tok = prompts[:, -1:]
+    window_logits = []
     reset_launches()
     with Phase("lm_decode_window", profile) as ph:
         for t in range(steps):
             lg, caches = step(params, caches, tok, ctx + t)
+            window_logits.append(lg)
             tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1)
     window_launches = flash_attention.launches
     window_paths = dict(flash_attention.launches_by_path)
@@ -1089,6 +1275,23 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
         f"{window_launches}")
     assert bool(torch.isfinite(lg).all())
     del caches
+    # the same steps under decode_cache_update="dus": the same logits, bit
+    # for bit (the port writes the one slot in place under either)
+    dus = make_serve_step(dataclasses.replace(cfg, decode_cache_update="dus"))
+    caches = tree_map(lambda a: a.clone(), seeded)
+    tok = prompts[:, -1:]
+    dus_equal = True
+    for t in range(steps):
+        lg, caches = dus(params, caches, tok, ctx + t)
+        dus_equal &= torch.equal(lg, window_logits[t])
+        tok = torch.argmax(lg[:, :, :cfg.vocab_size], dim=-1)
+    log(f"lm_decode_window under decode_cache_update='dus': {steps} steps' "
+        f"logits bitwise equal to masked: {dus_equal}")
+    assert dus_equal
+    del caches, window_logits
+    ring = run_decode_ring(dev, cfg, params, tree_map(
+        lambda a: a[:, :, :ctx], seeded), g, profile)
+    del seeded
     return {"prefill": {"tokens": prefill_len, "seconds": prefill_s,
                         "launches": prefill_launches,
                         "launches_by_path": prefill_paths, "peak_gib": peak,
@@ -1101,8 +1304,9 @@ def run_lm(dev, prefill_len: int, compare_len: int, profile):
                               "batch": prompts.shape[0],
                               "seconds": ph.seconds, "tok_s": win_tok_s,
                               "launches": window_launches,
-                              "launches_by_path": window_paths},
-            "cfg": cfg}
+                              "launches_by_path": window_paths,
+                              "dus_bitwise_equal": dus_equal},
+            "decode_ring": ring, "strategies": strategies, "cfg": cfg}
 
 
 # The card's training against the CPU's plain path: one step each of
@@ -2728,6 +2932,78 @@ def run_seamless(dev, prefill_len: int, compare_len: int, profile) -> dict:
     return out
 
 
+# phi3-medium-14b: the kernel alone is held at the group edges (query heads
+# 0, 3 on KV head 0; 4 on 1; 36, 39 on 9); the float32 route comparison at
+# 8 of its 40 layers (float32 weights of all 40, 54.6 GiB, do not fit
+# beside the bf16 ones)
+PHI3_HELD_HEADS = (0, 3, 4, 36, 39)
+PHI3_F32_DEPTH = 8
+
+
+def run_phi3(dev, prefill_len: int, compare_len: int, profile) -> dict:
+    """phi3_prefill at phi3-medium-14b's published widths (seeded bf16
+    weights): the kernel route against the plain route, the prefill with
+    its analytic FLOPs, then the kernel alone at the prefill's shape, held
+    head by head."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
+    from repro_torch.launch import analytic
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_config("phi3-medium-14b")
+    n_attn = cfg.n_repeats * sum(sp.mixer == "attn" for sp in cfg.pattern)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, g, device=dev)
+    torch.cuda.synchronize()
+    log(f"phi3 init: {cfg.name}, {cfg.param_count() / 1e9:.3f}B parameters "
+        f"(bf16, seeded), {time.perf_counter() - t0:.2f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prefill = make_prefill_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (1, prefill_len), device=dev,
+                           generator=g)
+    out = {"model": cfg.name, "tokens": prefill_len}
+    # the kernel route against the plain route (also warms cuBLAS and the
+    # kernel up)
+    out["compare"] = compare_routes(
+        cfg, params, {"tokens": tokens[:, :compare_len]}, prefill,
+        make_prefill_step(cfg, attn_impl="plain"), label="phi3_prefill",
+        f32_depth=PHI3_F32_DEPTH)
+    free_card()
+
+    flops = analytic.forward_cost(cfg, 1, prefill_len).flops
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("phi3_prefill", profile) as ph:
+        logits = prefill(params, {"tokens": tokens})
+    launches = flash_attention.launches
+    paths = dict(flash_attention.launches_by_path)
+    peak = peak_gib()                       # before isfinite's temporaries
+    finite = bool(torch.isfinite(logits).all())
+    log(f"phase phi3_prefill: {cfg.name}, {prefill_len} tokens in "
+        f"{ph.seconds:.3f} s ({prefill_len / ph.seconds:.1f} tok/s; "
+        f"{flops:.4e} flops by launch/analytic.py's forward_cost, "
+        f"{flops / ph.seconds / 1e12:.1f} TFLOP/s), logits "
+        f"{tuple(logits.shape)} finite={finite}, flash launches {launches} "
+        f"{paths}, peak device memory {peak:.2f} GiB")
+    assert logits.shape == (1, prefill_len, cfg.padded_vocab), logits.shape
+    assert finite
+    assert launches == n_attn, (launches, n_attn)
+    assert paths == {"simt": 0, "tc": n_attn, "short": 0}, paths
+    del logits, params
+    free_card()
+    out.update(seconds=ph.seconds, tokens_s=prefill_len / ph.seconds,
+               analytic_flops=flops, tflops_s=flops / ph.seconds / 1e12,
+               launches=launches, launches_by_path=paths, peak_gib=peak)
+    # the kernel alone at the prefill's shape, held head by head
+    out["flash_full"] = time_flash_full(dev, cfg, prefill_len,
+                                        heads=PHI3_HELD_HEADS)
+    free_card()
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
@@ -3002,6 +3278,10 @@ def main(argv=None) -> None:
     seamless_flash = {"seamless_prefill": seamless["launches"],
                       "seamless_decode": seamless["decode"]["launches"]}
     launches["flash_attention"] += sum(seamless_flash.values())
+    phi3 = run_phi3(dev, args.prefill_len, args.compare_len, args.profile)
+    phi3_flash = {"phi3_prefill": phi3["launches"],
+                  "lm_decode_ring": lm_out["decode_ring"]["launches"]}
+    launches["flash_attention"] += sum(phi3_flash.values())
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
@@ -3015,6 +3295,7 @@ def main(argv=None) -> None:
                    mixers["moe_prefill_qwen3"]["launches_by_path"],
                    vlm["launches_by_path"], seamless["launches_by_path"],
                    seamless["decode"]["launches_by_path"],
+                   phi3["launches_by_path"],
                    lm_out["prefill"]["launches_by_path"],
                    lm_out["serve"]["launches_by_path"],
                    lm_out["decode_window"]["launches_by_path"], emb_paths]
@@ -3029,14 +3310,15 @@ def main(argv=None) -> None:
     paths["tc"]["prefill_full_moe"] = mixers["flash_full"]
     paths["tc"]["prefill_full_vlm"] = vlm["flash_full"]
     paths["tc"]["prefill_full_seamless"] = seamless["flash_full"]
+    paths["tc"]["prefill_full_phi3"] = phi3["flash_full"]
     paths["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
                           for fn, regs, spill in ptxas["flash_attention"]}
     a = by_label["a"]
     results.append({
         "name": "flash_attention", "max_abs_err": max(
             r["max_abs_err"] for r in flash + mixers["flash_full"]
-            + [vlm["flash_full"]] + seamless["flash_full"]
-            if r["max_abs_err"] is not None),
+            + [vlm["flash_full"], phi3["flash_full"]]
+            + seamless["flash_full"] if r["max_abs_err"] is not None),
         **{k: a[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")},
         "paths": paths, "checks": flash,
@@ -3045,9 +3327,11 @@ def main(argv=None) -> None:
                               "lm_decode_window":
                                   lm_out["decode_window"]["launches"],
                               "embedder": emb_launches, **mixer_flash,
-                              **vlm_flash, **seamless_flash},
+                              **vlm_flash, **seamless_flash, **phi3_flash},
         "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
-        "lm_decode_window": lm_out["decode_window"]})
+        "lm_decode_window": lm_out["decode_window"],
+        "lm_decode_ring": lm_out["decode_ring"],
+        "shard_strategies": lm_out["strategies"]})
     results[0]["launches_by_path"] = topk_paths
     results[0]["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
                                for fn, regs, spill in ptxas["distance_topk"]}
@@ -3070,6 +3354,7 @@ def main(argv=None) -> None:
     log("mixer paths: " + json.dumps(mixers))
     log("vlm paths: " + json.dumps(vlm))
     log("seamless paths: " + json.dumps(seamless))
+    log("phi3 paths: " + json.dumps(phi3))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,24 @@
 """Grouped-query attention: full-sequence self- and cross-attention
 (training / prefill) through the ``flash_attention`` kernel, and
-single-token decode over a ring-buffer KV cache or, for cross-attention,
-over the encoder's precomputed K/V.
+single-token decode over a ring-buffer KV cache, over a read-only main
+cache and a small ring of recent tokens (``decode_ring > 0``, the two-tier
+cache), or, for cross-attention, over the encoder's precomputed K/V.
 
 The JAX package's XLA implementation of full-sequence attention
 (``blocked_attention``) is not copied: it computes the same function as the
-kernel's plain version, and the parity tests hold the port against it.  Not
-ported yet, each raising ``NotImplementedError``: the sequence-parallel
-``seq_dp`` paths (ROADMAP A6), and the ``dus`` cache update and the
-two-tier decode cache (ROADMAP A5).
+kernel's plain version, and the parity tests hold the port against it.
+
+Options of the config that mean nothing different on one device:
+
+* ``shard_strategy`` ``seq_dp`` and ``ep_seq`` split the query positions of
+  attention over a mesh's ``model`` axis.  Without a mesh the JAX package
+  computes what ``megatron`` computes, and so does the port, which runs on
+  one device.  The sequence-parallel form across devices waits for the
+  port's mesh (ROADMAP A6c).
+* ``decode_cache_update="dus"`` writes the new token's slot by
+  ``dynamic_update_slice`` where ``"masked"`` rewrites the cache through a
+  one-hot ``where``; both give the same values, and the port writes that
+  one slot in place under either.
 """
 from __future__ import annotations
 
@@ -46,21 +56,6 @@ def attention_specs(cfg: ModelConfig, cross: bool = False) -> PyTree:
         specs["q_norm"] = ParamSpec((hd,), dt, init="ones")
         specs["k_norm"] = ParamSpec((hd,), dt, init="ones")
     return specs
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.shard_strategy in ("seq_dp", "ep_seq"):
-        raise NotImplementedError(
-            f"shard_strategy={cfg.shard_strategy!r} (sequence-parallel "
-            "attention) is not ported yet: ROADMAP A6")
-    if cfg.decode_cache_update != "masked":
-        raise NotImplementedError(
-            f"decode_cache_update={cfg.decode_cache_update!r} is not ported "
-            "yet: ROADMAP A5")
-    if cfg.decode_ring:
-        raise NotImplementedError(
-            "the two-tier decode cache (decode_ring > 0) is not ported yet: "
-            "ROADMAP A5")
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +100,6 @@ def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
     ``impl="kernel"`` goes through ``ops.flash_attention`` (the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors); ``"plain"`` takes
     the plain version on any device, as a reference."""
-    _check_supported(cfg)
     q, k, v = _project_qkv(params, x, cfg, kv_x)
     cross = kv_x is not None
     if angles is not None and not cross:
@@ -130,11 +124,11 @@ def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,
 
     Returns (out (B,1,D), cache_k, cache_v).  The new token's K/V go into
     slot ``pos % S`` in place (the JAX package rewrites the cache through a
-    one-hot ``where``; the values are the same and the port saves the copy),
+    one-hot ``where``, or under ``decode_cache_update="dus"`` updates that
+    slot; the values are the same and the port saves the copy),
     so the returned caches are the ones passed in.  With ``cross`` the cache
     holds the encoder's precomputed K/V: no k/v projection, no write, every
     key attended."""
-    _check_supported(cfg)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     hk, h = cfg.n_kv_heads, cfg.n_heads
@@ -170,3 +164,66 @@ def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,
     o = torch.einsum("bkgst,btkh->bskgh", (p / l).to(cache_v.dtype), cache_v)
     out = _out_proj(params, o.reshape(b, 1, h, hd), cfg)
     return out, cache_k, cache_v
+
+
+def attention_decode_two_tier(params: PyTree, x: torch.Tensor,
+                              main_k: torch.Tensor, main_v: torch.Tensor,
+                              ring_k: torch.Tensor, ring_v: torch.Tensor,
+                              pos: int, cfg: ModelConfig,
+                              angles: Optional[torch.Tensor] = None):
+    """One-token decode over the two-tier cache.  x (B,1,D); main_k/v
+    (B,S,Hk,hd) hold positions 0..S-1 and are read, never written; ring_k/v
+    (B,W,Hk,hd) take the new token's K/V in slot ``(pos - S) % W``, in
+    place, and their slot i counts as position S + i in the causal and
+    window masks.  The two score pieces are merged flash-style (a shared
+    max, one denominator, a P.V product each), not concatenated.
+
+    Returns (out (B,1,D), ring_k, ring_v), the rings the ones passed in.
+
+    The JAX package's arithmetic, kept as it is: the scale is multiplied
+    before the float32 cast (``attention_decode`` divides), ``k_norm``
+    applies when ``q_norm`` is in ``params``, and nothing merges the ring
+    into the main cache, so from step S + W on each new token overwrites
+    the slot of the token W before it, which is then attended no more."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    hk, h = cfg.n_kv_heads, cfg.n_heads
+    g = h // hk
+    s, w = main_k.shape[1], ring_k.shape[1]
+    q = torch.matmul(x, params["wq"]).reshape(b, 1, h, hd)
+    k_new = torch.matmul(x, params["wk"]).reshape(b, 1, hk, hd)
+    v_new = torch.matmul(x, params["wv"]).reshape(b, 1, hk, hd)
+    if "q_norm" in params:
+        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
+        k_new = rmsnorm({"scale": params["k_norm"]}, k_new, cfg.norm_eps)
+    if angles is not None:
+        q = rope_lib.apply_rope(q, angles)
+        k_new = rope_lib.apply_rope(k_new, angles)
+    slot = (pos - s) % w
+    ring_k[:, slot] = k_new[:, 0].to(ring_k.dtype)
+    ring_v[:, slot] = v_new[:, 0].to(ring_v.dtype)
+
+    qg = q.reshape(b, 1, hk, g, hd)
+    scale = 1.0 / math.sqrt(hd)
+    s_main = (torch.einsum("bskgh,btkh->bkgst", qg, main_k) * scale).float()
+    s_ring = (torch.einsum("bskgh,btkh->bkgst", qg, ring_k) * scale).float()
+    kpos_main = torch.arange(s, device=x.device)
+    kpos_ring = s + torch.arange(w, device=x.device)
+    valid_main, valid_ring = kpos_main <= pos, kpos_ring <= pos
+    if cfg.sliding_window:
+        valid_main &= pos - kpos_main < cfg.sliding_window
+        valid_ring &= pos - kpos_ring < cfg.sliding_window
+    s_main = s_main.masked_fill(~valid_main, NEG_INF)
+    s_ring = s_ring.masked_fill(~valid_ring, NEG_INF)
+    m = torch.maximum(s_main.amax(dim=-1, keepdim=True),
+                      s_ring.amax(dim=-1, keepdim=True))
+    p_main = torch.exp(s_main - m)
+    p_ring = torch.exp(s_ring - m)
+    l = (p_main.sum(dim=-1, keepdim=True)  # noqa: E741
+         + p_ring.sum(dim=-1, keepdim=True))
+    o = (torch.einsum("bkgst,btkh->bskgh", (p_main / l).to(main_v.dtype),
+                      main_v)
+         + torch.einsum("bkgst,btkh->bskgh", (p_ring / l).to(ring_v.dtype),
+                        ring_v))
+    out = _out_proj(params, o.reshape(b, 1, h, hd), cfg)
+    return out, ring_k, ring_v

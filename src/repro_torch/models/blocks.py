@@ -121,12 +121,18 @@ def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Per-layer decode state as ``{name: (shape, dtype)}``: the reference's
     shapes and dtypes (the recurrent states float32, Mamba's conv window in
-    the activations' dtype); with ``cross_len``, the encoder's K/V for
+    the activations' dtype); with ``cfg.decode_ring``, attention's ring of
+    recent tokens, ``ring_k`` and ``ring_v`` (B, decode_ring, Hk, hd),
+    beside its main cache; with ``cross_len``, the encoder's K/V for
     cross-attention, ``cross_k`` and ``cross_v`` (B, cross_len, Hk, hd)."""
     if spec.mixer == "attn":
         kv = ((batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim),
               DTYPES[cfg.dtype])
         out = {"k": kv, "v": kv}
+        if cfg.decode_ring:
+            ring = ((batch, cfg.decode_ring, cfg.n_kv_heads,
+                     cfg.resolved_head_dim), DTYPES[cfg.dtype])
+            out["ring_k"], out["ring_v"] = ring, ring
     elif spec.mixer == "mamba":
         out = mamba.mamba_cache_specs(cfg, batch)
     elif spec.mixer == "mlstm":
@@ -151,12 +157,18 @@ def layer_decode(params: PyTree, h: torch.Tensor, cache: PyTree, pos: int,
                                                           PyTree]:
     """One token through one layer.  The cache's tensors (views into the
     stacked caches of ``lm.init_cache``) are updated in place, and the
-    returned cache is the one passed in."""
+    returned cache is the one passed in.  With ``cfg.decode_ring``,
+    attention writes only its ring and reads the main cache."""
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
     if spec.mixer == "attn":
-        mixed, _, _ = attention.attention_decode(
-            params["attn"], x, cache["k"], cache["v"], pos, cfg,
-            angles=angles)
+        if cfg.decode_ring:
+            mixed, _, _ = attention.attention_decode_two_tier(
+                params["attn"], x, cache["k"], cache["v"], cache["ring_k"],
+                cache["ring_v"], pos, cfg, angles=angles)
+        else:
+            mixed, _, _ = attention.attention_decode(
+                params["attn"], x, cache["k"], cache["v"], pos, cfg,
+                angles=angles)
         new = {}
     elif spec.mixer == "mamba":
         mixed, conv, hst = mamba.mamba_decode(params["mamba"], x,

@@ -260,9 +260,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, cross_len: int = 0,
                device=None) -> PyTree:
     """Zeroed decode caches of :func:`cache_specs`: a tuple over pattern
     positions, each a dict of tensors with a leading ``n_repeats`` axis
-    (attention K/V ring buffers of ``seq`` slots, Mamba, mLSTM and sLSTM
-    states, cross-attention K/V), on ``device`` (CUDA unless the caller
-    asks for another)."""
+    (attention K/V ring buffers of ``seq`` slots and, with
+    ``cfg.decode_ring``, the two-tier cache's ring of recent tokens; Mamba,
+    mLSTM and sLSTM states; cross-attention K/V), on ``device`` (CUDA
+    unless the caller asks for another)."""
     device = resolve_device(device)
     return tuple({name: torch.zeros(shape, dtype=dt, device=device)
                   for name, (shape, dt) in layer.items()}
@@ -304,7 +305,9 @@ def prefill(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             cache_len: int):
     """Run the full prompt by replaying it one token at a time through
     :func:`decode_step` (exact), materializing decode caches of capacity
-    ``cache_len``.  Returns (logits (B,S,V), caches).
+    ``cache_len``.  Returns (logits (B,S,V), caches).  Under
+    ``cfg.decode_ring`` the replay, as the JAX package's, writes only the
+    rings, and attention reads a main cache that stays zero.
 
     An encoder-decoder first encodes ``batch["enc_embeds"]`` and fills every decoder layer's cross-attention
     K/V from the encoder's output.  Only ``batch["tokens"]`` is replayed,

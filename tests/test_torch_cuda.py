@@ -621,3 +621,77 @@ def test_encoder_decoder_on_the_card_matches_the_cpu(cuda):
         torch.backends.cuda.matmul.allow_tf32 = tf32
     for got, want in zip(out[1], out[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,window", [("phi3-medium-14b", 0),
+                                         ("h2o-danube-3-4b", 6)])
+def test_two_tier_decode_on_the_card_matches_the_cpu(cuda, arch, window):
+    """The two-tier decode cache from the same seeded float32 weights and
+    main cache (8 slots), 10 steps on a ring of 4, past its capacity (the
+    reference's forgetting), on the card against the CPU (TF32 off): each
+    step's logits and the rings after them within 1e-4; the main cache is
+    left as it was."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(get_config(arch).smoke(), decode_ring=4,
+                              sliding_window=window)
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    caches = lm.init_cache(cfg, 2, 8, device="cpu")
+    for layer in caches:
+        layer["k"].normal_(generator=gen)
+        layer["v"].normal_(generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 10), generator=gen)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    try:
+        for dev in ("cpu", cuda):
+            p = _tree_to(params, dev)
+            c = tree_map(lambda a: a.to(dev, copy=True), caches)
+            with torch.no_grad():
+                steps = [lm.decode_step(p, c, toks[:, t:t + 1].to(dev),
+                                        8 + t, cfg)[0] for t in range(10)]
+            out.append((torch.cat(steps, 1).cpu(),
+                        [{k: v.cpu() for k, v in layer.items()}
+                         for layer in c]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l0, c0), (l1, c1) = out
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=1e-4)
+    for got, want, orig in zip(c1, c0, caches):
+        for name in ("ring_k", "ring_v"):
+            torch.testing.assert_close(got[name], want[name], rtol=1e-4,
+                                       atol=1e-4)
+        assert torch.equal(got["k"], orig["k"])
+
+
+def test_dus_decode_on_the_card_equals_masked(cuda):
+    """``decode_cache_update="dus"`` on the card: h2o-danube's smoke model
+    in bf16 over 12 steps on a cache of 8 slots, which wraps, gives the
+    ``masked`` run's logits and caches bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    base = dataclasses.replace(get_config("h2o-danube-3-4b").smoke(),
+                               dtype="bfloat16", param_dtype="bfloat16")
+    params = lm.init_model(base, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda)
+    toks = torch.randint(0, base.vocab_size, (2, 12), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    out = []
+    for cfg in (base, dataclasses.replace(base, decode_cache_update="dus")):
+        caches = lm.init_cache(cfg, 2, 8, device=cuda)
+        with torch.no_grad():
+            steps = [lm.decode_step(params, caches, toks[:, t:t + 1], t,
+                                    cfg)[0] for t in range(12)]
+        out.append((torch.cat(steps, 1), caches))
+    (l0, c0), (l1, c1) = out
+    assert l1.dtype == torch.bfloat16 and torch.equal(l1, l0)
+    for a, b in zip(c0, c1):
+        assert all(torch.equal(a[k], b[k]) for k in a)

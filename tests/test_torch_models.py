@@ -4,8 +4,10 @@ reference and the Pallas kernel in interpret mode; the configs, parameter
 layout and initialisation, RoPE and RMSNorm; ``lm_logits``, ``decode_step``
 and replay ``prefill`` with JAX weights carried across by
 ``params_from_jax`` (the encoder-decoder with encoder inputs of another
-length than the prompt); the transformer embedder; ``serve_lm``; and the
-paths that are not ported yet, which raise.
+length than the prompt); the attention options of the config (the ``dus``
+cache update, ``seq_dp``/``ep_seq``/``pure_dp``, the two-tier decode
+cache); the transformer embedder; ``serve_lm``; and the analytic cost
+model.
 
 Inputs come from seeded numpy.  Tolerances: attention 2e-3 float32 and
 3e-2 bfloat16, as the JAX package's kernel test (tests/test_kernels.py);
@@ -255,7 +257,8 @@ def _flat_specs(tree, path=""):
                                   "qwen3-1.7b", "tasti-embedder",
                                   "olmoe-1b-7b", "qwen3-moe-30b-a3b",
                                   "xlstm-350m", "jamba-1.5-large-398b",
-                                  "qwen2-vl-7b", "seamless-m4t-large-v2"])
+                                  "qwen2-vl-7b", "seamless-m4t-large-v2",
+                                  "phi3-medium-14b"])
 def test_parameter_layout_matches_jax(arch):
     """Full-width specs (no allocation): the same tree, shapes and dtypes."""
     assert _flat_specs(lm.model_specs(get_config(arch))) == \
@@ -386,20 +389,30 @@ def test_params_from_jax_keeps_bfloat16_bits():
 
 # smoke variants beside the configs' own: qwen2-vl with 7 query heads on
 # one KV head, so that a GQA group of 7 (qwen2-vl-7b's 28 on 4) runs
-# through the whole model; seamless with an encoder one layer deeper than
-# its decoder, so that each stack runs its own depth
+# through the whole model; phi3-medium with 4 on 1 (its smoke model is
+# MHA, its published one 40 on 10); seamless with an encoder one layer
+# deeper than its decoder, so that each stack runs its own depth;
+# phi3-medium with the two-tier decode cache's ring of 8
 VARIANTS = {"qwen2-vl-7b-gqa7": ("qwen2-vl-7b",
                                  {"n_heads": 7, "n_kv_heads": 1}),
+            "phi3-medium-14b-gqa4": ("phi3-medium-14b",
+                                     {"n_heads": 4, "n_kv_heads": 1}),
             "seamless-m4t-large-v2-enc3": ("seamless-m4t-large-v2",
-                                           {"n_encoder_layers": 3})}
+                                           {"n_encoder_layers": 3}),
+            "phi3-medium-14b-ring8": ("phi3-medium-14b", {"decode_ring": 8})}
 
 
-def _model(arch, seed=0):
-    arch, over = VARIANTS.get(arch, (arch, {}))
+def _model(arch, seed=0, **over):
+    """The JAX package's smoke model of ``arch`` (a key of ``VARIANTS`` or
+    a config name), with the config fields ``over`` replaced, seeded, and
+    the port's with the same weights."""
+    arch, var = VARIANTS.get(arch, (arch, {}))
+    over = {**var, **over}
     cfg_j = dataclasses.replace(jax_config(arch).smoke(), **over)
     pj = jax_lm.init_model(cfg_j, jax.random.PRNGKey(seed))
     return (cfg_j, pj, dataclasses.replace(get_config(arch).smoke(), **over),
             lm.params_from_jax(jax.tree.map(np.asarray, pj)))
+
 
 
 def _vision(cfg, b, seed):
@@ -447,7 +460,10 @@ def _one_ulp_witness(pj, run, base):
     ("qwen2-vl-7b-gqa7", "xla"), ("qwen2-vl-7b-gqa7", "pallas_interpret"),
     ("seamless-m4t-large-v2", "xla"),
     ("seamless-m4t-large-v2", "pallas_interpret"),
-    ("seamless-m4t-large-v2-enc3", "xla")])
+    ("seamless-m4t-large-v2-enc3", "xla"),
+    ("phi3-medium-14b", "xla"), ("phi3-medium-14b", "pallas_interpret"),
+    ("phi3-medium-14b-gqa4", "xla"),
+    ("phi3-medium-14b-gqa4", "pallas_interpret")])
 def test_lm_logits_match_jax(arch, jax_impl):
     """h2o-danube at S = 128 so that its smoke window of 64 bites; llama
     (tied embeddings) and qwen3 (qk-norm) for the other branches; the MoE
@@ -457,7 +473,8 @@ def test_lm_logits_match_jax(arch, jax_impl):
     variant; seamless (a bidirectional encoder over 96 frame embeddings,
     the decoder's 128 tokens cross-attending to them: S != Skv; without
     them a ``KeyError``, as in the JAX package), also with 3 encoder
-    layers against 2 decoder layers.  1e-4,
+    layers against 2 decoder layers; phi3-medium (untied, no window) and
+    its 4-heads-on-1 variant.  1e-4,
     or for xlstm-350m twice the reference's one-ulp witness
     (``_one_ulp_witness``) where that is larger."""
     cfg_j, pj, cfg, pt = _model(arch)
@@ -534,7 +551,8 @@ def test_decode_ring_wraps_like_jax():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-30b-a3b",
                                   "xlstm-350m", "jamba-1.5-large-398b",
                                   "qwen2-vl-7b", "qwen2-vl-7b-gqa7",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2",
+                                  "phi3-medium-14b-ring8"])
 def test_decode_of_every_mixer_matches_jax(arch):
     """Decode steps against the reference's (1e-4; for xlstm-350m twice the
     reference's one-ulp witness of the same steps where that is larger),
@@ -547,7 +565,10 @@ def test_decode_of_every_mixer_matches_jax(arch):
     the replay is not the parallel forward there.  seamless's decode needs
     the cross-attention caches that only ``prefill`` builds (from 12
     encoder frames against a prompt of 16): the reference's logits come
-    from its ``prefill``, and the cross caches are held to its (1e-4)."""
+    from its ``prefill``, and the cross caches are held to its (1e-4).
+    Under ``decode_ring`` (8 slots) the replay writes only the rings, which
+    wrap twice and are held to the reference's (1e-4); the main cache
+    stays zero in both, so that replay is not the parallel forward."""
     cfg_j, pj, cfg, pt = _model(arch, seed=1)
     b, s = 2, 24 if cfg.vision_tokens else 16
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s))
@@ -584,12 +605,16 @@ def test_decode_of_every_mixer_matches_jax(arch):
             ref = np.asarray(cj[pos][name], np.float32)
             assert state.dtype == _TORCH_DT[str(cj[pos][name].dtype)]
             assert tuple(state.shape) == ref.shape
-            if spec.mixer != "attn" or name.startswith("cross_"):
+            if spec.mixer != "attn" or name.startswith(("cross_",
+                                                         "ring_")):
                 np.testing.assert_allclose(_f32(state), ref, rtol=1e-4,
                                            atol=1e-4, err_msg=name)
     if cfg.encoder_decoder:
         assert ct[0]["cross_k"].shape[2] == 12
-    if cfg.vision_tokens:
+    if cfg.decode_ring:
+        assert ct[0]["ring_k"].shape[2] == cfg.decode_ring
+        assert not ct[0]["k"].any() and not ct[0]["v"].any()
+    if cfg.vision_tokens or cfg.decode_ring:
         return
     par = make_prefill_step(cfg)(pt, batch)
     np.testing.assert_allclose(got.numpy(), par.numpy(), rtol=2e-2,
@@ -674,25 +699,144 @@ def test_build_tasti_takes_the_transformer_embedder():
 
 
 # ---------------------------------------------------------------------------
-# not ported yet
+# the attention options of the config
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("field,value,roadmap", [
-    ("shard_strategy", "seq_dp", "A6"), ("decode_cache_update", "dus", "A5"),
-    ("decode_ring", 4, "A5")])
-def test_unported_attention_options_raise(field, value, roadmap):
-    cfg = dataclasses.replace(get_config("llama3.2-1b").smoke(),
-                              **{field: value})
+def _decode_logits(step, params, caches, toks, start=0):
+    """(B, T, V) logits of ``step`` fed ``toks`` (B, T) one at a time from
+    position ``start`` over ``caches``."""
+    out = []
+    for t in range(toks.shape[1]):
+        lg, caches = step(params, caches, toks[:, t:t + 1], start + t)
+        out.append(np.asarray(lg[:, 0], np.float32))
+    return np.stack(out, 1)
+
+
+@pytest.mark.parametrize("field,value,arch", [
+    ("decode_cache_update", "dus", "h2o-danube-3-4b"),
+    ("shard_strategy", "seq_dp", "h2o-danube-3-4b"),
+    ("shard_strategy", "seq_dp", "olmoe-1b-7b"),
+    ("shard_strategy", "ep_seq", "h2o-danube-3-4b"),
+    ("shard_strategy", "ep_seq", "olmoe-1b-7b"),
+    ("shard_strategy", "pure_dp", "h2o-danube-3-4b"),
+    ("shard_strategy", "pure_dp", "olmoe-1b-7b")])
+def test_attention_options_match_jax(field, value, arch):
+    """Each option against the reference under the same option (1e-4),
+    and the port under it against the port under the default, bit for bit:
+    on one device the JAX package computes ``megatron``'s function under
+    ``seq_dp``, ``ep_seq`` and ``pure_dp`` (no mesh, no ``model`` axis),
+    and its ``dus`` cache write the ``masked`` one's values.  The
+    strategies on logits at S 128 (h2o-danube's smoke window of 64 bites);
+    ``dus`` on 12 decode steps over a cache of 8 slots, which wraps."""
+    cfg_j, pj, cfg, pt = _model(arch, **{field: value})
+    base = dataclasses.replace(cfg, **{field: getattr(
+        get_config(arch), field)})
+    if field == "shard_strategy":
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 128))
+        want = np.asarray(jax_lm.lm_logits(pj, {"tokens": jnp.asarray(toks)},
+                                           cfg_j))
+        batch = {"tokens": torch.from_numpy(toks)}
+        got = make_prefill_step(cfg)(pt, batch).numpy()
+        default = make_prefill_step(base)(pt, batch).numpy()
+    else:
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
+        jax_step = jax.jit(jax_lm.decode_step, static_argnums=4)
+        want = _decode_logits(
+            lambda p, c, tok, t: jax_step(p, c, jnp.asarray(tok),
+                                          jnp.int32(t), cfg_j),
+            pj, jax_lm.init_cache(cfg_j, 2, 8), toks)
+        got, default = (_decode_logits(
+            make_serve_step(c), pt, lm.init_cache(c, 2, 8, device="cpu"),
+            torch.from_numpy(toks)) for c in (cfg, base))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got, default)
+
+
+def test_attention_rejects_an_unknown_impl():
+    cfg = get_config("llama3.2-1b").smoke()
     p = common.init_params(attention.attention_specs(cfg), device="cpu")
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match=roadmap):
-        attention.attention_fwd(p, x, cfg)
-    kv = torch.zeros(1, 4, cfg.n_kv_heads, cfg.resolved_head_dim)
-    with pytest.raises(NotImplementedError, match=roadmap):
-        attention.attention_decode(p, x[:, :1], kv, kv.clone(), 0, cfg)
     with pytest.raises(ValueError, match="attn impl"):
-        attention.attention_fwd(p, x, get_config("llama3.2-1b").smoke(),
+        attention.attention_fwd(p, torch.zeros(1, 4, cfg.d_model), cfg,
                                 impl="xla")
+
+
+def _two_tier_caches(init_cache, cfg_ring, main, b, s):
+    """The two-tier caches of ``cfg_ring``: zero rings and the main cache
+    grafted from ``main``, the caches of a masked decode of ``s`` steps
+    (capacity exactly ``s``); ``init_cache(cfg, b, s)`` of either
+    package."""
+    ring = init_cache(cfg_ring, b, s)
+    return tuple(dict(r, k=m["k"], v=m["v"]) for r, m in zip(ring, main))
+
+
+def test_two_tier_decode_matches_plain():
+    """tests/test_model_consistency.py's test on the port: phi3-medium's
+    smoke model, a prompt of 16 into the main cache by the masked decode,
+    then 6 steps on a ring of 8 against the masked decode over all 22
+    tokens (2e-3)."""
+    cfg = get_config("phi3-medium-14b").smoke()
+    b, s, extra = 2, 16, 6
+    cfg_ring = dataclasses.replace(cfg, decode_ring=8)
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (b, s + extra),
+                         generator=torch.Generator().manual_seed(1))
+    step, ring_step = make_serve_step(cfg), make_serve_step(cfg_ring)
+    want = _decode_logits(step, params,
+                          lm.init_cache(cfg, b, s + extra, device="cpu"),
+                          toks)[:, -1]
+    main = lm.init_cache(cfg, b, s, device="cpu")
+    _decode_logits(step, params, main, toks[:, :s])
+    caches = _two_tier_caches(
+        lambda c, bb, ss: lm.init_cache(c, bb, ss, device="cpu"), cfg_ring,
+        main, b, s)
+    got = _decode_logits(ring_step, params, caches, toks[:, s:], start=s)
+    np.testing.assert_allclose(got[:, -1], want, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("arch,window", [("phi3-medium-14b", 0),
+                                         ("qwen3-1.7b", 0),
+                                         ("h2o-danube-3-4b", 6)])
+def test_two_tier_decode_matches_jax(arch, window):
+    """The main cache (8 slots) filled by the masked decode, then 10 steps
+    on a ring of 4, past its capacity, where the reference overwrites the
+    token 4 steps back (ROADMAP C, noted): each step's logits and the
+    rings after it against the reference's (1e-4).  qwen3's qk-norm takes
+    the k_norm-under-q_norm branch; h2o-danube with a window of 6 masks
+    main keys, and ring slots by the positions S + i that the reference
+    gives them even after the ring wraps."""
+    b, s, w, steps = 2, 8, 4, 10
+    cfg_j, pj, cfg, pt = _model(arch, seed=3, sliding_window=window)
+    rcfg_j = dataclasses.replace(cfg_j, decode_ring=w)
+    rcfg = dataclasses.replace(cfg, decode_ring=w)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                             (b, s + steps))
+    jax_step = jax.jit(jax_lm.decode_step, static_argnums=4)
+    cj = jax_lm.init_cache(cfg_j, b, s)
+    ct = lm.init_cache(cfg, b, s, device="cpu")
+    for t in range(s):
+        _, cj = jax_step(pj, cj, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t),
+                         cfg_j)
+    _decode_logits(make_serve_step(cfg), pt, ct, torch.from_numpy(toks[:, :s]))
+    np.testing.assert_allclose(ct[0]["k"].numpy(), np.asarray(cj[0]["k"]),
+                               rtol=1e-4, atol=1e-4)
+    cj = _two_tier_caches(jax_lm.init_cache, rcfg_j, cj, b, s)
+    ct = _two_tier_caches(
+        lambda c, bb, ss: lm.init_cache(c, bb, ss, device="cpu"), rcfg, ct,
+        b, s)
+    main = ct[0]["k"].clone()
+    ring_step = make_serve_step(rcfg)
+    for t in range(s, s + steps):
+        lj, cj = jax_step(pj, cj, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t),
+                          rcfg_j)
+        lt, ct = ring_step(pt, ct, torch.from_numpy(toks[:, t:t + 1]), t)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-4,
+                                   atol=1e-4, err_msg=f"step {t}")
+        for name in ("ring_k", "ring_v"):
+            np.testing.assert_allclose(ct[0][name].numpy(),
+                                       np.asarray(cj[0][name]), rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{name} {t}")
+    assert torch.equal(ct[0]["k"], main)
 
 
 def test_lm_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

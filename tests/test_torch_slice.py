@@ -282,6 +282,17 @@ with torch.no_grad():
     lg, caches = lm.decode_step(p, caches, toks[:, 32:33], 32, cfg)
 assert caches[0]["cross_k"].shape[2] == 24 and lg.shape == (1, 1, 512)
 assert float((replay - par).abs().max()) < 2e-2
+# the two-tier decode cache, and the analytic cost model of its cell
+import dataclasses
+from repro_torch.configs import SHAPE_BY_NAME
+from repro_torch.launch import analytic
+cfg = dataclasses.replace(get_config("phi3-medium-14b").smoke(), decode_ring=4)
+p = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+caches = lm.init_cache(cfg, 1, 8, device="cpu")
+with torch.no_grad():
+    lg, caches = lm.decode_step(p, caches, toks[:, :1], 8, cfg)
+assert lg.shape == (1, 1, 512) and caches[0]["ring_k"][:, :, 0].any()
+assert analytic.cell_cost(cfg, SHAPE_BY_NAME["decode_32k"]).bytes > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
