@@ -115,6 +115,23 @@
    launches, all tc, with launch/analytic.py's FLOPs); then the kernel
    alone at the prefill's shape, heads 0, 3, 4, 36 and 39 each held
    against the plain version on that head and its KV head.
+13. The mesh layer (no kernel of its own), after the card is freed:
+   compress (``compress_decompress`` with error feedback over a seeded
+   bf16 gradient tree of every h2o-danube-3-4b leaf, 3.96B elements, 3
+   rounds by CUDA events beside their byte bound; one leaf against the
+   CPU bitwise; the convergence rule on 1M elements); then 4 spawned
+   ranks sharing the card over gloo (NCCL takes one rank per GPU, so
+   these times say nothing of NCCL across cards): compressed_psum (each
+   rank's own seeded gradient of one danube block: means equal on every
+   rank, within max|g|/64 of the true mean, errors g + e - dequant(q)),
+   seq_dp_prefill (danube at full width under ``shard_strategy="seq_dp"``
+   on a (1, 4) mesh, one 32,768-token prompt, 8,192 positions a rank;
+   held to seq_dp in one process and to the plain and kernel routes),
+   pipeline (danube's 24 blocks in 2 stages of 12 on 2 of the ranks,
+   batch 4 x 4,096 in 4 microbatches, against the sequential blocks) and
+   elastic_restore (``make_elastic_mesh()`` (1, 4); danube's embedding and
+   one block restored with the placements of ``param_pspecs``, each rank's
+   slice bitwise); then ``make_compressed_psum`` on a 1-rank NCCL group.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -3004,6 +3021,590 @@ def run_phi3(dev, prefill_len: int, compare_len: int, profile) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The mesh layer (parallel/, optim/compression.py, runtime/elastic.py,
+# checkpoint restore with shardings) on the card.  compress runs in this
+# process; compressed_psum, seq_dp_prefill, pipeline and elastic_restore in
+# PAR_RANKS spawned processes sharing the one card over gloo (NCCL takes
+# one rank per GPU), so their times say nothing of NCCL across cards; then
+# compressed_psum once more on a 1-rank NCCL group.  gloo runs all_reduce,
+# broadcast and all_gather on CUDA tensors, and the port stages send/recv
+# through host memory (parallel/collectives.py); DTensor.full_tensor()
+# over gloo on CUDA tensors crashed torch 2.11 on the H100, so every check
+# reads each rank's own slice.
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 4
+PAR_GROUP_TIMEOUT_S = 240     # each collective of the multi-rank phases
+PAR_DEADLINE_S = 600          # all of them; then every rank is killed
+COMPRESS_ROUNDS = 3
+# bytes a round per element: g (bf16) and e (f32) read for the max and
+# again for the codes, deq (bf16) and e (f32) written once
+COMPRESS_BYTES = 2 * (2 + 4) + (2 + 4)
+COMPRESS_CONVERGE = 1 << 20   # elements of the error-feedback rule's leaf
+SEQ_WITNESS_RATIO = 1.5       # bf16: mean |d logit| against the witness's
+SEQ_F32_DEPTH, SEQ_F32_TOL = 8, 2e-3
+SEQ_TAIL = 256                # positions per shard held at full length
+PIPE_BATCH, PIPE_SEQ, PIPE_MICRO = 4, 4096, 4
+PIPE_F32_DEPTH, PIPE_F32_TOL = 4, 1e-4
+PIPE_BF16_REL = 2e-2          # max |d| over max |h|, whole-batch reference
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak(dev) -> float:
+    return peak_gib() if dev.type == "cuda" else 0.0
+
+
+def _reset_peak(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _free(dev) -> None:
+    if dev.type == "cuda":
+        free_card()
+
+
+def run_compress(dev, cfg) -> dict:
+    """compress: error-feedback int8 compression (``compress_decompress``)
+    of a seeded bf16 "gradient" tree with every leaf shape of ``cfg``, its
+    float32 errors carried from round to round; CUDA-event time a round
+    beside the bound of COMPRESS_BYTES an element; one leaf against the
+    CPU (bitwise) and the JAX package's convergence rule on a 1M leaf."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves_with_names
+    from repro_torch.optim.compression import compress_decompress
+    g = torch.Generator(device=dev).manual_seed(5)
+    names, grads, errors = [], [], []
+    for name, spec in tree_leaves_with_names(lm.model_specs(cfg)):
+        names.append(name)
+        grads.append(torch.randn(spec.shape, generator=g, device=dev,
+                                 dtype=torch.bfloat16))
+        errors.append(torch.zeros(spec.shape, device=dev))
+    n = sum(t.numel() for t in grads)
+
+    def one_round():
+        for i, gi in enumerate(grads):
+            _, errors[i] = compress_decompress(gi, errors[i])
+
+    _reset_peak(dev)
+    ms = time_ms(one_round, COMPRESS_ROUNDS)
+    peak = _peak(dev)
+    n_bytes = COMPRESS_BYTES * n
+    bound = 1e3 * n_bytes / PEAK_BYTES_S
+    # one leaf against the CPU, from the errors the rounds left
+    i = names.index("blocks/0/attn/wk")
+    deq, err = compress_decompress(grads[i], errors[i])
+    deq_c, err_c = compress_decompress(grads[i].cpu(), errors[i].cpu())
+    cpu_equal = bool(torch.equal(deq.cpu(), deq_c)
+                     and torch.equal(err.cpu(), err_c))
+    del grads, errors, deq, err, deq_c, err_c
+    # the JAX package's rule: the accumulated dequantized stream follows
+    # the accumulated gradient within 2% of its largest element
+    g1 = torch.randn(COMPRESS_CONVERGE, generator=g, device=dev)
+    e1 = torch.zeros_like(g1)
+    acc = torch.zeros(COMPRESS_CONVERGE, dtype=torch.float64, device=dev)
+    for _ in range(50):
+        deq, e1 = compress_decompress(g1, e1)
+        acc += deq.double()
+    true = 50 * g1.double()
+    rel = float((acc - true).abs().max() / true.abs().max())
+    free_card()
+    out = {"elements": n, "leaves": len(names), "rounds": COMPRESS_ROUNDS,
+           "ms_per_round": ms, "bytes_per_round": n_bytes,
+           "bound_ms": bound, "peak_gib": peak,
+           "cpu_leaf": names[i], "cpu_bitwise": cpu_equal,
+           "converge_rel_50": rel}
+    log(f"phase compress: {n} elements in {len(names)} leaves (bf16, "
+        f"float32 errors), {ms:.3f} ms a round (CUDA events, {COMPRESS_ROUNDS}"
+        f" rounds), {n_bytes / 1e9:.2f} GB a round at {COMPRESS_BYTES} B an "
+        f"element, bound {bound:.3f} ms at {PEAK_BYTES_S / 1e12:.2f} TB/s; "
+        f"peak {peak:.2f} GiB; {names[i]} against the CPU bitwise: "
+        f"{cpu_equal}; 50 rounds of error feedback on {COMPRESS_CONVERGE} "
+        f"elements: rel {rel:.3g} (< 0.02)")
+    assert cpu_equal and rel < 0.02, out
+    return out
+
+
+def _block_leaves(cfg, dev, seed: int, dtype=torch.bfloat16) -> list:
+    """Seeded tensors with the leaf shapes of one block of ``cfg``."""
+    from repro_torch.models import blocks
+    from repro_torch.models.common import tree_leaves
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s.shape, generator=g, device=dev, dtype=dtype)
+            for s in tree_leaves(blocks.block_specs(cfg))]
+
+
+def _par_compressed_psum(dev, cfg, rank: int, world: int) -> dict:
+    """compressed_psum: each rank's own seeded gradient (one block's leaf
+    shapes, bf16) and error through ``make_compressed_psum`` over a 1-D
+    mesh of every rank; the mean equal on every rank and within max|g|/64
+    of the true mean, the errors ``g + e - dequant(q)`` with the shared
+    scale; every rank regenerates all ranks' gradients to check."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import make_compressed_psum
+    mesh = make_mesh((world,), ("data",), dev.type)
+    f = make_compressed_psum(mesh, ("data",))
+    grads = _block_leaves(cfg, dev, 100 + rank)
+    errs = [1e-3 * t.float() for t in _block_leaves(cfg, dev, 200 + rank)]
+    mean, new_e = f(grads, errs)            # warm-up, then timed
+    _sync(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    mean, new_e = f(grads, errs)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    equal = True
+    for m in mean:
+        m0 = m.clone()
+        dist.broadcast(m0, src=0)
+        equal &= bool(torch.equal(m0, m))
+    # every rank's g + e, regenerated: the true mean and the shared scale
+    total = [torch.zeros(m.shape, device=dev) for m in mean]
+    top = [torch.zeros((), device=dev) for _ in mean]
+    for r in range(world):
+        for i, (gr, er) in enumerate(zip(_block_leaves(cfg, dev, 100 + r),
+                                         _block_leaves(cfg, dev, 200 + r))):
+            gf = gr.float() + 1e-3 * er.float()
+            total[i] += gf
+            top[i] = torch.maximum(top[i], gf.abs().max())
+    worst_mean, worst_err = 0.0, 0.0
+    for i, (m, e) in enumerate(zip(mean, new_e)):
+        scale = torch.clamp_min(top[i], 1e-12) / 127.0
+        gf = grads[i].float() + errs[i]
+        q = torch.clamp(torch.round(gf / scale), -127, 127)
+        worst_err = max(worst_err, float((e - (gf - q * scale)).abs().max()))
+        worst_mean = max(worst_mean, float(
+            (m.float() - total[i] / world).abs().max() / top[i]))
+    out = {"ranks": world, "elements": sum(t.numel() for t in grads),
+           "seconds": seconds, "equal_on_every_rank": equal,
+           "mean_err_over_max_g": worst_mean, "error_stream_max_diff":
+           worst_err}
+    assert equal and worst_mean <= 1 / 64 and worst_err == 0.0, out
+    return out
+
+
+def _par_seq_dp(dev, cfg, rank: int, world: int, prefill_len: int,
+                compare_len: int) -> dict:
+    """seq_dp_prefill: ``make_prefill_step(cfg, mesh=)`` under seq_dp on a
+    (1, world) mesh, each rank holding prefill_len/world positions and
+    gathering K/V once a layer.  Its attention keeps the JAX package's
+    sharded arithmetic, which rounds the scores to bf16 (the einsum of
+    bf16 inputs), where the plain route and the kernel keep them in
+    float32.  In bf16 it is held, by compare_routes' rule with
+    SEQ_WITNESS_RATIO of the keys-reversed witness, to the same function
+    in one process (seq_dp on a 1-rank mesh, rank 0) and to the plain
+    route at compare_len, and to both of those routes' one-process runs
+    on the last SEQ_TAIL positions of each shard at prefill_len (the
+    kernel route standing in for the plain one, whose scores do not fit
+    at that length); in float32 at SEQ_F32_DEPTH layers against the plain
+    route within SEQ_F32_TOL."""
+    import dataclasses
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention, lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.parallel import collectives
+    from repro_torch.train.steps import make_prefill_step
+    mesh = make_mesh((1, world), ("data", "model"), dev.type)
+    one = make_mesh((1, 1), ("data", "model"), dev.type)     # rank 0 alone
+    seq_cfg = dataclasses.replace(cfg, shard_strategy="seq_dp")
+    step = make_prefill_step(seq_cfg, mesh=mesh)
+    step_one = make_prefill_step(seq_cfg, mesh=one)
+    plain = make_prefill_step(cfg, attn_impl="plain")
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_model(cfg, g, device=dev)    # the same on every rank
+    tokens = torch.randint(0, cfg.vocab_size, (1, prefill_len), device=dev,
+                           generator=g)
+    short = {"tokens": tokens[:, :compare_len]}
+    v = cfg.vocab_size
+    out = {"ranks": world, "tokens": prefill_len, "compare_tokens":
+           compare_len}
+
+    def agree(a, b):
+        return dict(zip(("max_abs", "mean_abs", "top1"),
+                        logits_agreement(a, b, v)))
+
+    def gathered(batch, p):
+        return collectives.all_gather_cat(step(p, batch).to_local(), mesh,
+                                          ("model",), 1)
+
+    got = gathered(short, params)
+    if rank == 0:
+        out["bf16_vs_one_process"] = agree(got, step_one(params,
+                                                         short).to_local())
+        want = plain(params, short)
+        out["bf16_vs_plain"] = agree(got, want)
+        with mock.patch.object(attention, "flash_attention_ref",
+                               plain_attention_keys_reversed):
+            out["witness"] = agree(plain(params, short), want)
+        del want
+    del got
+    _free(dev)
+    dist.barrier()
+
+    # full length, timed; each rank keeps its shard's last SEQ_TAIL rows
+    _reset_peak(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    logits = step(params, {"tokens": tokens}).to_local()
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    peak = _peak(dev)
+    finite = bool(torch.isfinite(logits).all())
+    times = torch.tensor([seconds, peak, float(finite)], device=dev)
+    every = collectives.all_gather_cat(times[None], mesh, ("model",),
+                                       0).cpu()
+    tails = collectives.all_gather_cat(logits[:, -SEQ_TAIL:], mesh,
+                                       ("model",), 1)
+    del logits
+    _free(dev)
+    if rank == 0:
+        shard = prefill_len // world
+
+        def rows(full):
+            return torch.cat([full[:, (r + 1) * shard - SEQ_TAIL:
+                                   (r + 1) * shard] for r in range(world)],
+                             dim=1)
+
+        full = step_one(params, {"tokens": tokens}).to_local()
+        out["tails_vs_one_process"] = agree(tails, rows(full))
+        del full
+        full = make_prefill_step(cfg)(params, {"tokens": tokens})
+        out["tails_vs_kernel"] = agree(tails, rows(full))
+        del full
+    del tails
+    _free(dev)
+    out.update(seconds=float(every[:, 0].max()),
+               seconds_by_rank=every[:, 0].tolist(),
+               peak_gib_by_rank=every[:, 1].tolist(),
+               finite=bool(every[:, 2].all()))
+    out["tokens_s"] = prefill_len / out["seconds"]
+    dist.barrier()
+
+    # float32 at a depth cut that fits world copies on the card
+    cut = dict(params, blocks=tree_map(lambda a: a[:SEQ_F32_DEPTH],
+                                       params["blocks"]))
+    p32 = tree_map(lambda a: a.float(), cut)
+    del params, cut
+    _free(dev)
+    got = gathered(short, p32)
+    if rank == 0:
+        out["f32_vs_plain"] = agree(got, plain(p32, short))
+        out["f32_depth"] = SEQ_F32_DEPTH
+    del got, p32
+    _free(dev)
+    dist.barrier()
+    return out
+
+
+def _par_pipeline(dev, cfg, rank: int) -> dict:
+    """pipeline: ``pipeline_fwd`` of cfg's stacked blocks (the port's block
+    stack, plain attention) over a 2-rank ``pod`` mesh, PIPE_BATCH x
+    PIPE_SEQ in PIPE_MICRO microbatches, against the one-process
+    sequential blocks on the same h: bitwise against them microbatch by
+    microbatch and within PIPE_BF16_REL of them on the whole batch in
+    bf16, and within PIPE_F32_TOL in float32 at PIPE_F32_DEPTH layers."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.parallel.pipeline import pipeline_fwd
+    mesh = make_mesh((2,), ("pod",), dev.type)    # ranks 0 and 1
+    out = {"stages": 2, "batch": PIPE_BATCH, "seq": PIPE_SEQ,
+           "microbatches": PIPE_MICRO, "layers": cfg.n_repeats}
+    if mesh.get_coordinate() is None:
+        dist.barrier()
+        return out
+    group = mesh.get_group("pod")
+    g = torch.Generator(device=dev).manual_seed(1)
+    params = lm.init_model(cfg, g, device=dev)
+    h = torch.randn((PIPE_BATCH, PIPE_SEQ, cfg.d_model), generator=g,
+                    device=dev, dtype=torch.bfloat16)
+    angles = lm._angles_for(cfg, 1, PIPE_SEQ, dev)
+
+    @torch.no_grad()
+    def block_apply(stage_params, hm):
+        return lm._run_blocks({"blocks": stage_params}, hm, cfg, angles,
+                              causal=True, attn_impl="plain")[0]
+
+    def run(blocks_, h_):
+        dist.barrier(group=group)
+        t0 = time.perf_counter()
+        y = pipeline_fwd(block_apply, blocks_, h_, mesh, PIPE_MICRO,
+                         axis="pod")
+        _sync(dev)
+        return y, time.perf_counter() - t0
+
+    y, seconds = run(params["blocks"], h)
+    if rank == 0:
+        per_micro = torch.cat([block_apply(params["blocks"], hm)
+                               for hm in h.chunk(PIPE_MICRO)])
+        whole = block_apply(params["blocks"], h)
+        out["bitwise_per_microbatch"] = bool(torch.equal(y, per_micro))
+        out["whole_batch_max_rel"] = float(
+            (y.float() - whole.float()).abs().max()
+            / whole.float().abs().max())
+        out["finite"] = bool(torch.isfinite(y).all())
+        del per_micro, whole
+    out["seconds"] = seconds
+    del y
+    blocks32 = tree_map(lambda a: a[:PIPE_F32_DEPTH].float(),
+                        params["blocks"])
+    del params
+    _free(dev)
+    y32, seconds32 = run(blocks32, h.float())
+    if rank == 0:
+        want = block_apply(blocks32, h.float())
+        out["f32_max_abs"] = float((y32 - want).abs().max())
+        out["f32_ref_max_abs"] = float(want.abs().max())
+        out["f32_depth"] = PIPE_F32_DEPTH
+        out["f32_seconds"] = seconds32
+        del want
+    del y32, blocks32
+    _free(dev)
+    dist.barrier()
+    return out
+
+
+def _par_elastic_restore(dev, cfg, rank: int, ckpt_dir: str) -> dict:
+    """elastic_restore: ``make_elastic_mesh()`` over the ranks, a checkpoint
+    of cfg's embedding and one block at full width written once (rank 0),
+    restored with ``shardings=`` from ``param_shardings`` (the megatron
+    rules: vocab, heads and mlp over model); every rank's local slice
+    bitwise its slice of the written leaf."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.models import blocks, lm
+    from repro_torch.models.common import (abstract_params, init_params,
+                                           stack_specs,
+                                           tree_leaves_with_names)
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    mesh = make_elastic_mesh(device_type=dev.type)
+    specs = {"embed": lm.model_specs(cfg)["embed"],
+             "blocks": tuple(stack_specs(t, 1)
+                             for t in blocks.block_specs(cfg))}
+    tree = init_params(specs, torch.Generator(device=dev).manual_seed(3),
+                       device=dev)
+    ck = Checkpointer(ckpt_dir)
+    t0 = time.perf_counter()
+    if rank == 0:
+        ck.save(1, tree)
+    save_s = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    shardings = shd.param_shardings(specs, cfg, mesh)
+    restored, _ = ck.restore(1, abstract_params(specs), shardings=shardings)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    sizes = {n: mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)}
+    pspecs = dict(tree_leaves_with_names(shd.param_pspecs(specs, cfg,
+                                                          mesh)))
+    local_of = dict(tree_leaves_with_names(restored))
+    bitwise, split = True, 0
+    for name, full in tree_leaves_with_names(tree):
+        want = full
+        for d, entry in enumerate(pspecs[name]):
+            for a in (() if entry is None else
+                      entry if isinstance(entry, tuple) else (entry,)):
+                step = want.shape[d] // sizes[a]
+                want = want.narrow(d, coord[a] * step, step)
+                split += 1
+        local = local_of[name].to_local()
+        bitwise &= local.device == full.device and bool(
+            torch.equal(local, want))
+    out = {"mesh": [mesh.size(0), mesh.size(1)],
+           "dims": list(mesh.mesh_dim_names),
+           "elements": sum(t.numel() for _, t in
+                           tree_leaves_with_names(tree)),
+           "leaves_split": split, "save_s": save_s, "restore_s": restore_s,
+           "bitwise": bitwise}
+    assert out["mesh"] == [1, PAR_RANKS] and out["dims"] == ["data", "model"]
+    assert bitwise and split > 0, out
+    dist.barrier()
+    return out
+
+
+def parallel_worker(rank: int, world: int, store: str, out_dir: str,
+                    opts: dict) -> None:
+    """One rank of the multi-rank phases (a spawned process)."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    dev = torch.device(opts["device"], 0) if opts["device"] == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PAR_GROUP_TIMEOUT_S))
+    cfg = get_config(opts["arch"])
+    if opts.get("smoke"):
+        cfg = dataclasses.replace(cfg.smoke(), dtype="bfloat16",
+                                  param_dtype="bfloat16")
+    out = {}
+    for name, fn in (
+            ("compressed_psum", lambda: _par_compressed_psum(
+                dev, cfg, rank, world)),
+            ("seq_dp_prefill", lambda: _par_seq_dp(
+                dev, cfg, rank, world, opts["prefill_len"],
+                opts["compare_len"])),
+            ("pipeline", lambda: _par_pipeline(dev, cfg, rank)),
+            ("elastic_restore", lambda: _par_elastic_restore(
+                dev, cfg, rank, os.path.join(out_dir, "ckpt")))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _free(dev)
+        if rank == 0:
+            log(f"  rank 0: {name} done in {time.perf_counter() - t0:.2f} s")
+    pathlib.Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def nccl_worker(out_dir: str, arch: str) -> None:
+    """make_compressed_psum on a 1-rank NCCL group (a spawned process): the
+    NCCL path builds and runs; with one rank the mean is the local round
+    trip, bitwise."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.compression import (compress_decompress,
+                                               make_compressed_psum)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    cfg = get_config(arch)
+    f = make_compressed_psum(make_mesh((1,), ("data",)), ("data",))
+    grads = _block_leaves(cfg, dev, 100)
+    errs = [1e-3 * t.float() for t in _block_leaves(cfg, dev, 200)]
+    mean, new_e = f(grads, errs)
+    ms = time_ms(lambda: f(grads, errs), 3)
+    bitwise = True
+    for gi, ei, m, e in zip(grads, errs, mean, new_e):
+        deq, err = compress_decompress(gi, ei)
+        bitwise &= bool(torch.equal(m, deq) and torch.equal(e, err))
+    out = {"backend": dist.get_backend(), "ranks": 1, "ms": ms,
+           "bitwise_vs_round_trip": bitwise}
+    pathlib.Path(out_dir, "nccl.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def _spawn(target, args_list, deadline_s: float) -> list:
+    """Starts one spawned process per args tuple and joins them by the
+    deadline; kills every one left then.  Returns the exit codes."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_list]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + deadline_s
+    for p in procs:
+        p.join(max(0.1, end - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return [p.exitcode for p in procs]
+
+
+def run_parallel(opts: dict) -> dict:
+    """The multi-rank phases: PAR_RANKS gloo ranks (compressed_psum,
+    seq_dp_prefill, pipeline on 2 of them, elastic_restore), then the
+    1-rank NCCL check.  Their numbers are gloo on one card."""
+    import shutil
+    import tempfile
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        store = os.path.join(out_dir, "store")
+        t0 = time.perf_counter()
+        codes = _spawn(parallel_worker,
+                       [(r, PAR_RANKS, store, out_dir, opts)
+                        for r in range(PAR_RANKS)], PAR_DEADLINE_S)
+        seconds = time.perf_counter() - t0
+        assert codes == [0] * PAR_RANKS, f"ranks exited with {codes}"
+        ranks = [json.loads(pathlib.Path(out_dir, f"rank{r}.json")
+                            .read_text()) for r in range(PAR_RANKS)]
+        out = {"ranks": PAR_RANKS, "backend": "gloo, one card",
+               "seconds": seconds}
+        for name in ("compressed_psum", "seq_dp_prefill", "pipeline",
+                     "elastic_restore"):
+            out[name] = ranks[0][name]
+        out["elastic_restore"]["bitwise_every_rank"] = all(
+            r["elastic_restore"]["bitwise"] for r in ranks)
+        if opts["device"] == "cuda":
+            codes = _spawn(nccl_worker, [(out_dir, opts["arch"])], 300)
+            assert codes == [0], f"the NCCL check exited with {codes}"
+            out["compressed_psum"]["nccl_1_rank"] = json.loads(
+                pathlib.Path(out_dir, "nccl.json").read_text())
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cp, sq, pp, er = (out[k] for k in ("compressed_psum", "seq_dp_prefill",
+                                       "pipeline", "elastic_restore"))
+    log(f"phase compressed_psum (gloo, {PAR_RANKS} ranks on one card): "
+        f"{cp['elements']} elements a rank (one block, bf16), "
+        f"{cp['seconds']:.3f} s a call; means equal on every rank "
+        f"{cp['equal_on_every_rank']}, max |mean - true| / max|g| "
+        f"{cp['mean_err_over_max_g']:.4g} (<= 1/64), error stream max diff "
+        f"{cp['error_stream_max_diff']}; 1-rank NCCL: "
+        f"{cp.get('nccl_1_rank')}")
+    log(f"phase seq_dp_prefill (gloo, {PAR_RANKS} ranks on one card): "
+        f"{sq['tokens']} tokens in {sq['seconds']:.3f} s "
+        f"({sq['tokens_s']:.1f} tok/s; by rank {sq['seconds_by_rank']}), "
+        f"peak GiB by rank {sq['peak_gib_by_rank']}, finite {sq['finite']}; "
+        f"at {sq['compare_tokens']} tokens, bf16 against seq_dp in one "
+        f"process {sq['bf16_vs_one_process']}, against the plain route "
+        f"{sq['bf16_vs_plain']}, witness (plain keys reversed vs plain) "
+        f"{sq['witness']}; float32 at {sq['f32_depth']} layers against the "
+        f"plain route {sq['f32_vs_plain']}; last {SEQ_TAIL} positions of "
+        f"each shard at {sq['tokens']} tokens against seq_dp in one process "
+        f"{sq['tails_vs_one_process']}, against the kernel route "
+        f"{sq['tails_vs_kernel']}")
+    log(f"phase pipeline (gloo, 2 ranks on one card): {pp}")
+    log(f"phase elastic_restore (gloo, {PAR_RANKS} ranks on one card): {er}")
+    wit = sq["witness"]
+    for cmp in (sq["bf16_vs_one_process"], sq["tails_vs_one_process"],
+                sq["bf16_vs_plain"], sq["tails_vs_kernel"]):
+        assert cmp["mean_abs"] <= SEQ_WITNESS_RATIO * wit["mean_abs"], \
+            (cmp, wit)
+        assert cmp["top1"] >= wit["top1"] - WITNESS_TOP1_SLACK, (cmp, wit)
+        assert cmp["mean_abs"] <= BF16_LOGITS_MEAN, cmp
+    assert sq["f32_vs_plain"]["max_abs"] <= SEQ_F32_TOL, sq["f32_vs_plain"]
+    assert sq["finite"], sq
+    assert pp["bitwise_per_microbatch"] and pp["finite"], pp
+    assert pp["whole_batch_max_rel"] <= PIPE_BF16_REL, pp
+    assert pp["f32_max_abs"] <= PIPE_F32_TOL, pp
+    assert er["bitwise_every_rank"], er
+    if opts["device"] == "cuda":
+        nc = cp["nccl_1_rank"]
+        assert nc["backend"] == "nccl" and nc["bitwise_vs_round_trip"], nc
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
@@ -3282,6 +3883,15 @@ def main(argv=None) -> None:
     phi3_flash = {"phi3_prefill": phi3["launches"],
                   "lm_decode_ring": lm_out["decode_ring"]["launches"]}
     launches["flash_attention"] += sum(phi3_flash.values())
+    free_card()
+
+    # the mesh layer, after the card has been freed: no kernel of its own
+    from repro_torch.configs import get_config
+    compress = run_compress(dev, get_config("h2o-danube-3-4b"))
+    parallel = run_parallel({"device": "cuda", "arch": "h2o-danube-3-4b",
+                             "prefill_len": args.prefill_len,
+                             "compare_len": args.compare_len})
+    parallel["compress"] = compress
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
@@ -3355,6 +3965,7 @@ def main(argv=None) -> None:
     log("vlm paths: " + json.dumps(vlm))
     log("seamless paths: " + json.dumps(seamless))
     log("phi3 paths: " + json.dumps(phi3))
+    log("parallel paths: " + json.dumps(parallel))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.models.common import (PyTree, tree_leaves_with_names,
                                        tree_unflatten_like)
+from repro_torch.parallel.sharding import shard_tensor
 
 
 def _host(leaf) -> np.ndarray:
@@ -126,16 +127,27 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: PyTree):
+    def restore(self, step: int, target: PyTree,
+                shardings: Optional[PyTree] = None):
         """A new tree of ``target``'s layout, each leaf read from step
         ``step`` as a tensor of the target leaf's dtype on its device (the
-        CPU for a number or numpy leaf); returns (tree, extra)."""
+        CPU for a number, a numpy leaf or a ``meta`` tensor, as
+        ``abstract_params`` gives); returns (tree, extra).
+
+        With ``shardings`` (a tree of ``parallel.sharding.NamedSharding``
+        of the same layout, ``None`` for a leaf kept whole) each such leaf
+        becomes a DTensor on its sharding's mesh: every rank reads the file
+        and keeps its own slice, on the mesh's device type.  This is the
+        elastic-resharding path: the file holds no sharding, so a
+        checkpoint written under one mesh restores onto any other."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         pairs = tree_leaves_with_names(target)
         names = [n for n, _ in pairs]
         if names != manifest["names"]:
             raise ValueError("checkpoint/target tree mismatch")
+        placed = ([None] * len(pairs) if shardings is None else
+                  _sharding_leaves(target, shardings))
         out = []
         with np.load(d / "arrays.npz") as data:
             for i, (_, tgt) in enumerate(pairs):
@@ -147,8 +159,20 @@ class Checkpointer:
                 else:
                     t = torch.from_numpy(np.array(arr))
                 if isinstance(tgt, torch.Tensor):
-                    t = t.to(device=tgt.device, dtype=tgt.dtype)
+                    dtype = tgt.dtype
+                    device = ("cpu" if placed[i] is not None or tgt.is_meta
+                              else tgt.device)
                 else:
-                    t = t.to(torch.from_numpy(np.asarray(tgt)).dtype)
+                    dtype = torch.from_numpy(np.asarray(tgt)).dtype
+                    device = "cpu"
+                t = t.to(device=device, dtype=dtype)
+                if placed[i] is not None:
+                    t = shard_tensor(t, placed[i])
                 out.append(t)
         return tree_unflatten_like(target, out), manifest["extra"]
+
+
+def _sharding_leaves(target: PyTree, shardings: PyTree) -> list:
+    """``shardings``' leaves in the order of ``target``'s leaves."""
+    by_name = dict(tree_leaves_with_names(shardings))
+    return [by_name.get(name) for name, _ in tree_leaves_with_names(target)]

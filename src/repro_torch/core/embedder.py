@@ -50,10 +50,12 @@ def transformer_specs(cfg: EmbedderConfig) -> PyTree:
                          f"of seq_tokens {cfg.seq_tokens}")
     tok_dim = cfg.feature_dim // cfg.seq_tokens
     return {
-        "proj_in": ParamSpec((tok_dim, bb.d_model), torch.float32),
+        "proj_in": ParamSpec((tok_dim, bb.d_model), torch.float32,
+                             logical_axes=("embed", "mlp")),
         "blocks": tuple(stack_specs(t, bb.n_repeats)
                         for t in blocks_lib.block_specs(bb)),
-        "proj_out": ParamSpec((bb.d_model, cfg.embed_dim), torch.float32),
+        "proj_out": ParamSpec((bb.d_model, cfg.embed_dim), torch.float32,
+                              logical_axes=("embed", "mlp")),
     }
 
 

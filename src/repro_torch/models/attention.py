@@ -11,10 +11,12 @@ kernel's plain version, and the parity tests hold the port against it.
 Options of the config that mean nothing different on one device:
 
 * ``shard_strategy`` ``seq_dp`` and ``ep_seq`` split the query positions of
-  attention over a mesh's ``model`` axis.  Without a mesh the JAX package
-  computes what ``megatron`` computes, and so does the port, which runs on
-  one device.  The sequence-parallel form across devices waits for the
-  port's mesh (ROADMAP A6c).
+  self-attention over a mesh's ``model`` dim (ROADMAP A6c):
+  :func:`attention_fwd` with ``mesh`` (a ``DeviceMesh``) takes this rank's
+  contiguous share of the positions, gathers K and V once, and walks the
+  key blocks it needs (:func:`_seq_dp_attention`).  Without a mesh, or
+  where :func:`seq_parallel` says no, it computes what ``megatron``
+  computes, as the JAX package does without a mesh.
 * ``decode_cache_update="dus"`` writes the new token's slot by
   ``dynamic_update_slice`` where ``"masked"`` rewrites the cache through a
   one-hot ``where``; both give the same values, and the port writes that
@@ -33,10 +35,14 @@ from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      flash_attention_ref)
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import DTYPES, ParamSpec, PyTree, rmsnorm
+from repro_torch.parallel import collectives
 
 #: ``attn_impl`` values: the kernel's wrapper (the plain version on CPU
 #: tensors) or the plain version on any device
 ATTN_IMPLS = ("kernel", "plain")
+
+#: strategies under which self-attention is sequence-parallel on a mesh
+SEQ_STRATEGIES = ("seq_dp", "ep_seq")
 
 
 def attention_specs(cfg: ModelConfig, cross: bool = False) -> PyTree:
@@ -47,10 +53,10 @@ def attention_specs(cfg: ModelConfig, cross: bool = False) -> PyTree:
     kvd = cfg.n_kv_heads * hd
     dt = DTYPES[cfg.param_dtype]
     specs = {
-        "wq": ParamSpec((d, qd), dt),
-        "wk": ParamSpec((d, kvd), dt),
-        "wv": ParamSpec((d, kvd), dt),
-        "wo": ParamSpec((qd, d), dt),
+        "wq": ParamSpec((d, qd), dt, logical_axes=("embed", "heads")),
+        "wk": ParamSpec((d, kvd), dt, logical_axes=("embed", "kv_heads")),
+        "wv": ParamSpec((d, kvd), dt, logical_axes=("embed", "kv_heads")),
+        "wo": ParamSpec((qd, d), dt, logical_axes=("heads", "embed")),
     }
     if cfg.qk_norm and not cross:
         specs["q_norm"] = ParamSpec((hd,), dt, init="ones")
@@ -86,20 +92,122 @@ def _out_proj(params: PyTree, o: torch.Tensor, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# Sequence-parallel attention (seq_dp, ep_seq)
+# ---------------------------------------------------------------------------
+
+def _block_attend(qg, k_blk, v_blk, q_positions, kv_start: int,
+                  scale: float, causal: bool, window: int):
+    """One (queries, key block) tile: qg (B,Sq,Hk,G,hd) at positions
+    ``q_positions`` against k/v (B,Bk,Hk,hd) at kv_start..; returns the
+    unnormalised o (B,Sq,Hk,G,hd) in v's dtype, the row max m and sum l
+    (B,Hk,G,Sq), float32.  Masked scores are NEG_INF (finite), so a row
+    masked over the whole block sums every value until a later block's
+    max wipes it, as in the JAX package."""
+    bk = k_blk.shape[1]
+    s = (torch.einsum("bskgh,btkh->bkgst", qg, k_blk) * scale).float()
+    kpos = kv_start + torch.arange(bk, device=qg.device)
+    mask = torch.ones((q_positions.shape[0], bk), dtype=torch.bool,
+                      device=qg.device)
+    if causal:
+        mask &= q_positions[:, None] >= kpos[None, :]
+    if window:
+        mask &= q_positions[:, None] - kpos[None, :] < window
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)  # noqa: E741
+    o = torch.einsum("bkgst,btkh->bskgh", p.to(v_blk.dtype), v_blk)
+    return o, m, l
+
+
+def _local_blocked_attention(q, k, v, cfg: ModelConfig, q_start: int,
+                             causal: bool, window: int) -> torch.Tensor:
+    """Blocked attention for a local query chunk q (B,Sq,H,hd) at positions
+    q_start.. against the full k/v (B,Skv,Hk,hd), with the JAX package's
+    arithmetic: key blocks of ``cfg.attn_block_k``, only those from the
+    window's first (``lo``) to the causal last (``hi``), both set by the
+    chunk's offset, and an online softmax in float32."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    hk = cfg.n_kv_heads
+    g = h // hk
+    scale = 1.0 / math.sqrt(hd)
+    bk = min(cfg.attn_block_k, skv)
+    if skv % bk:
+        raise ValueError(f"{skv} keys do not split into blocks of {bk}")
+    nk = skv // bk
+    qg = q.reshape(b, sq, hk, g, hd)
+    q_positions = q_start + torch.arange(sq, device=q.device)
+    hi = (q_start + sq + bk - 1) // bk if causal else nk
+    lo = max(0, (q_start - window + 1) // bk) if window else 0
+    o_acc = torch.zeros((b, hk, g, sq, hd), dtype=torch.float32,
+                        device=q.device)
+    m_acc = torch.full((b, hk, g, sq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_acc = torch.zeros((b, hk, g, sq), dtype=torch.float32, device=q.device)
+    for j in range(lo, hi):
+        o, m, l = _block_attend(qg, k[:, j * bk:(j + 1) * bk],  # noqa: E741
+                                v[:, j * bk:(j + 1) * bk], q_positions,
+                                j * bk, scale, causal, window)
+        m_new = torch.maximum(m_acc, m)
+        alpha = torch.exp(m_acc - m_new)
+        beta = torch.exp(m - m_new)
+        l_acc = l_acc * alpha + l * beta
+        o_acc = (o_acc * alpha[..., None]
+                 + o.permute(0, 2, 3, 1, 4).float() * beta[..., None])
+        m_acc = m_new
+    o_norm = o_acc / torch.clamp_min(l_acc, 1e-30)[..., None]
+    return o_norm.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def seq_parallel(cfg: ModelConfig, mesh, seq: int) -> bool:
+    """Whether self-attention over ``seq`` positions runs sequence-parallel
+    on ``mesh``: under ``seq_dp`` or ``ep_seq``, on a mesh with a
+    ``model`` dim whose size divides ``seq``.  Otherwise the positions are
+    not split, and the unsharded path computes the same values."""
+    if mesh is None or cfg.shard_strategy not in SEQ_STRATEGIES:
+        return False
+    names = tuple(mesh.mesh_dim_names)
+    return "model" in names and seq % mesh.size(names.index("model")) == 0
+
+
+def _seq_dp_attention(q, k, v, cfg: ModelConfig, causal: bool, window: int,
+                      mesh) -> torch.Tensor:
+    """Sequence-parallel blockwise attention.  q/k/v hold this rank's
+    S/n contiguous positions of the mesh's ``model`` dim (n ranks; rank r
+    in ``model`` holds r*S/n..): K and V are gathered once (tiled along
+    the sequence), and the rank's queries walk the key blocks they need.
+    Returns this rank's positions (B,S/n,H,hd)."""
+    kf = collectives.all_gather_cat(k, mesh, ("model",), 1)
+    vf = collectives.all_gather_cat(v, mesh, ("model",), 1)
+    q_start = collectives.group_rank(mesh, ("model",)) * q.shape[1]
+    return _local_blocked_attention(q, kf, vf, cfg, q_start, causal, window)
+
+
+# ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
 def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
                   causal: bool = True, angles: Optional[torch.Tensor] = None,
                   kv_x: Optional[torch.Tensor] = None,
-                  impl: str = "kernel") -> torch.Tensor:
+                  impl: str = "kernel", mesh=None) -> torch.Tensor:
     """Full-sequence attention (training / prefill), x (B,S,D).  With
     ``kv_x`` (B,Skv,D), cross-attention: keys and values from ``kv_x``, no
     RoPE, no window, not causal.
 
     ``impl="kernel"`` goes through ``ops.flash_attention`` (the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors); ``"plain"`` takes
-    the plain version on any device, as a reference."""
+    the plain version on any device, as a reference.
+
+    With ``mesh`` (a ``DeviceMesh`` with a ``model`` dim) under ``seq_dp``
+    or ``ep_seq``, self-attention is sequence-parallel: x and ``angles``
+    hold this rank's share of the positions (see :func:`seq_parallel`,
+    which the caller asks before it splits them), and the result is that
+    share, from :func:`_local_blocked_attention` on any ``impl``, as the
+    JAX package's sharded path computes it.  Under other strategies, for
+    cross-attention, or on a mesh without a ``model`` dim, ``mesh`` is not
+    used."""
     q, k, v = _project_qkv(params, x, cfg, kv_x)
     cross = kv_x is not None
     if angles is not None and not cross:
@@ -107,6 +215,11 @@ def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
         k = rope_lib.apply_rope(k, angles)
     causal = causal and not cross
     window = 0 if cross else cfg.sliding_window
+    if (mesh is not None and not cross
+            and cfg.shard_strategy in SEQ_STRATEGIES
+            and "model" in tuple(mesh.mesh_dim_names)):
+        return _out_proj(params, _seq_dp_attention(q, k, v, cfg, causal,
+                                                   window, mesh), cfg)
     if impl == "kernel":
         o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     elif impl == "plain":

@@ -52,36 +52,63 @@ def block_specs(cfg: ModelConfig, cross: bool = False) -> Tuple[PyTree, ...]:
 # ---------------------------------------------------------------------------
 
 def _mlp_out(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
-             spec: LayerSpec):
+             spec: LayerSpec, layout=None):
     """The residual branch of the layer's MLP and its aux loss (None
-    without one)."""
+    without one).  On a mesh (``layout``, h this rank's slice) the MoE
+    layer routes the whole batch: its groups, capacities and aux loss span
+    every token, so each rank gathers them, runs every expert (the weights
+    are replicated; expert-parallel compute is ROADMAP 6e) and keeps its
+    slice."""
     if spec.mlp == "dense":
         return mlp.mlp_fwd(params["mlp"], rmsnorm(params["norm2"], h,
                                                   cfg.norm_eps)), None
     if spec.mlp == "moe":
-        return moe.moe_fwd(params["moe"], rmsnorm(params["norm2"], h,
-                                                  cfg.norm_eps), cfg)
+        x = rmsnorm(params["norm2"], h, cfg.norm_eps)
+        if layout is None:
+            return moe.moe_fwd(params["moe"], x, cfg)
+        out, aux = moe.moe_fwd(params["moe"], layout.gather(x), cfg)
+        return layout.local(out), aux
     return None, None
+
+
+def _recurrent(fn, x: torch.Tensor, layout):
+    """A mixer that runs along the sequence (Mamba, mLSTM, sLSTM) on a
+    mesh: each rank gathers its batch rows' whole sequence, runs it and
+    keeps its positions."""
+    if layout is None or not layout.seq_dims:
+        return fn(x)
+    return layout.local(fn(layout.gather(x, batch=False)), batch=False)
 
 
 def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
               spec: LayerSpec, angles: Optional[torch.Tensor], causal: bool,
               enc_out: Optional[torch.Tensor] = None,
-              attn_impl: str = "kernel") -> Tuple[torch.Tensor,
-                                                  torch.Tensor]:
+              attn_impl: str = "kernel",
+              layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (h, aux_loss).  A layer with cross-attention attends to
-    ``enc_out`` (B, S_enc, D) after its mixer, when given."""
+    ``enc_out`` (B, S_enc, D) after its mixer, when given.
+
+    On a mesh, ``layout`` (a ``parallel.sharding.BatchLayout``) says how h
+    is split, and h is this rank's slice: attention gathers K/V once when
+    the sequence is split, a recurrent mixer and the MoE layer gather what
+    they span (:func:`_recurrent`, :func:`_mlp_out`), and the norms and a
+    dense MLP are local."""
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
     if spec.mixer == "attn":
-        mixed = attention.attention_fwd(params["attn"], x, cfg,
-                                        causal=causal, angles=angles,
-                                        impl=attn_impl)
+        mixed = attention.attention_fwd(
+            params["attn"], x, cfg, causal=causal, angles=angles,
+            impl=attn_impl,
+            mesh=layout.mesh if layout is not None and layout.seq_dims
+            else None)
     elif spec.mixer == "mamba":
-        mixed = mamba.mamba_fwd(params["mamba"], x, cfg)
+        mixed = _recurrent(lambda t: mamba.mamba_fwd(params["mamba"], t,
+                                                     cfg), x, layout)
     elif spec.mixer == "mlstm":
-        mixed = xlstm.mlstm_fwd(params["mlstm"], x, cfg)
+        mixed = _recurrent(lambda t: xlstm.mlstm_fwd(params["mlstm"], t,
+                                                     cfg), x, layout)
     elif spec.mixer == "slstm":
-        mixed = xlstm.slstm_fwd(params["slstm"], x, cfg)
+        mixed = _recurrent(lambda t: xlstm.slstm_fwd(params["slstm"], t,
+                                                     cfg), x, layout)
     else:
         raise ValueError(spec.mixer)
     h = h + mixed
@@ -90,7 +117,7 @@ def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
         h = h + attention.attention_fwd(params["cross_attn"], xc, cfg,
                                         causal=False, kv_x=enc_out,
                                         impl=attn_impl)
-    out, aux = _mlp_out(params, h, cfg, spec)
+    out, aux = _mlp_out(params, h, cfg, spec, layout)
     if out is not None:
         h = h + out
     if aux is None:
@@ -101,13 +128,14 @@ def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
 def block_fwd(params_tuple: Tuple[PyTree, ...], h: torch.Tensor,
               cfg: ModelConfig, angles: Optional[torch.Tensor], causal: bool,
               enc_out: Optional[torch.Tensor] = None,
-              attn_impl: str = "kernel") -> Tuple[torch.Tensor,
-                                                  torch.Tensor]:
+              attn_impl: str = "kernel",
+              layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (h, the aux losses of the period's layers summed)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for pos, spec in enumerate(cfg.pattern):
         h, a = layer_fwd(params_tuple[pos], h, cfg, spec, angles, causal,
-                         enc_out=enc_out, attn_impl=attn_impl)
+                         enc_out=enc_out, attn_impl=attn_impl,
+                         layout=layout)
         aux = aux + a
     return h, aux
 

@@ -24,10 +24,22 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclass(frozen=True)
 class ParamSpec:
+    """A leaf's shape, dtype and initialisation, and one logical axis name
+    per dim (``None`` for a replicated dim; ``logical_axes=None`` for all),
+    which ``repro_torch.parallel.sharding`` maps to mesh axes."""
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"  # normal | zeros | ones
     init_scale: float = 1.0
+    logical_axes: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.logical_axes is None:
+            object.__setattr__(self, "logical_axes",
+                               (None,) * len(self.shape))
+        assert len(self.shape) == len(self.logical_axes), (
+            self.shape, self.logical_axes)
+
 
 #: a leaf whose float32 draw would exceed this many bytes is drawn slice by
 #: slice along its leading axis (a stacked expert leaf of qwen3-moe-30b-a3b,
@@ -130,10 +142,29 @@ def init_params(specs: PyTree, generator: Optional[torch.Generator] = None,
     return build(specs)
 
 
+def is_spec_leaf(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def spec_map(fn: Callable[[ParamSpec], Any], tree: PyTree) -> PyTree:
+    """``fn`` over the :class:`ParamSpec` leaves of a spec tree."""
+    return tree_map(fn, tree)
+
+
+def abstract_params(specs: PyTree) -> PyTree:
+    """ParamSpec tree -> a tree of tensors on the ``meta`` device (shape and
+    dtype, no storage): the counterpart of the JAX package's
+    ``ShapeDtypeStruct`` tree."""
+    return spec_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
 def stack_specs(tree: PyTree, n: int) -> PyTree:
-    """Add a leading stacked-layer dimension to every spec."""
-    return tree_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init,
-                                        s.init_scale), tree)
+    """Add a leading stacked-layer dimension (logical axis ``layers``) to
+    every spec."""
+    return spec_map(lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init,
+                                        s.init_scale,
+                                        ("layers",) + s.logical_axes), tree)
 
 
 def take_layer(params: PyTree, i: int) -> PyTree:

@@ -7,8 +7,13 @@ decoder's layers cross-attending to its output).
 Parameters have the JAX package's layout: per-position trees stacked over
 ``n_repeats`` (the encoder's over ``n_encoder_layers``) on a leading axis;
 the port loops over the stacked layers in Python (PyTorch runs eagerly;
-nothing needs ``lax.scan``).  No mesh constraints: the port runs on one
-device.
+nothing needs ``lax.scan``).
+
+On a mesh (``forward_hidden``/``lm_logits`` with ``mesh=``, a
+``DeviceMesh``), every rank takes the global batch and works on its own
+slice, split as :func:`_constrain_batch` says, the counterpart of the JAX
+package's activation constraint at block boundaries; the result is a
+DTensor with that split.
 
 ``lm_loss`` trains: with ``cfg.remat == "full"`` each block is
 rematerialised in the backward pass (``torch.utils.checkpoint``, the JAX
@@ -26,15 +31,54 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import blocks, rope as rope_lib
+from repro_torch.models import attention, blocks, rope as rope_lib
 from repro_torch.models.common import (DTYPES, ParamSpec, PyTree,
                                        init_params, params_from_jax, rmsnorm,
                                        rmsnorm_specs, stack_specs, take_layer,
                                        tree_leaves, unstack_layers)
+from repro_torch.parallel import sharding as shd
 
 __all__ = ["model_specs", "init_model", "params_from_jax", "encode",
            "forward_hidden", "lm_loss", "lm_logits", "cache_specs",
            "init_cache", "fill_cross_caches", "decode_step", "prefill"]
+
+
+# ---------------------------------------------------------------------------
+# Activations on a mesh
+# ---------------------------------------------------------------------------
+
+def _constrain_batch(cfg: ModelConfig, mesh, batch: int,
+                     seq: int) -> "shd.BatchLayout":
+    """How a (batch, seq, ...) activation is split on ``mesh``, by the JAX
+    package's rules at block boundaries:
+
+    * ``pure_dp``: the batch over (pod, data, model), or over (pod, data)
+      where it does not divide, or not at all;
+    * ``seq_dp``, ``ep_seq``: the batch over (pod, data) where it divides,
+      and the sequence over ``model`` where
+      ``attention.seq_parallel`` allows (each attention layer then gathers
+      K/V once); ``ep_seq``'s experts stay replicated here, their
+      expert-parallel compute is ROADMAP 6e;
+    * ``megatron``: the batch over (pod, data).  Its weights are split over
+      ``model``, which needs tensor-parallel compute on sharded weights
+      (ROADMAP 6e), so a ``model`` dim of more than one rank raises.
+
+    Under the first two the weights are replicated, so the norms and a
+    dense MLP need no collective."""
+    names = tuple(mesh.mesh_dim_names)
+    strategy = cfg.shard_strategy
+    if (strategy not in ("pure_dp",) + attention.SEQ_STRATEGIES
+            and "model" in names and mesh.size(names.index("model")) > 1):
+        raise NotImplementedError(
+            f"shard_strategy {strategy!r} on a mesh with a 'model' dim of "
+            f"{mesh.size(names.index('model'))} ranks needs tensor-parallel "
+            "compute on sharded weights (ROADMAP 6e)")
+    bspec = shd.batch_pspec(mesh, batch, strategy=(
+        "pure_dp" if strategy == "pure_dp" else "megatron"))
+    batch_dims = shd.axis_members(bspec[0])
+    seq_dims = (("model",) if strategy in attention.SEQ_STRATEGIES
+                and attention.seq_parallel(cfg, mesh, seq) else ())
+    return shd.BatchLayout(mesh, batch_dims, seq_dims)
 
 
 # ---------------------------------------------------------------------------
@@ -46,13 +90,14 @@ def model_specs(cfg: ModelConfig) -> PyTree:
     v = cfg.padded_vocab
     dt = DTYPES[cfg.param_dtype]
     specs: Dict[str, Any] = {
-        "embed": ParamSpec((v, d), dt),
+        "embed": ParamSpec((v, d), dt, logical_axes=("vocab", "embed")),
         "blocks": tuple(stack_specs(t, cfg.n_repeats) for t in
                         blocks.block_specs(cfg, cross=cfg.encoder_decoder)),
         "final_norm": rmsnorm_specs(d, dt),
     }
     if not cfg.tie_embeddings:
-        specs["unembed"] = ParamSpec((d, v), dt)
+        specs["unembed"] = ParamSpec((d, v), dt,
+                                     logical_axes=("embed", "vocab"))
     if cfg.encoder_decoder:
         enc_layer = blocks.layer_specs(cfg, LayerSpec("attn", "dense"))
         specs["encoder"] = {
@@ -128,11 +173,12 @@ def _angles_for(cfg: ModelConfig, batch: int, seq: int, device,
 
 def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
                 causal: bool, enc_out: Optional[torch.Tensor] = None,
-                attn_impl: str = "kernel"):
+                attn_impl: str = "kernel", layout=None):
     """Loop over the stacked blocks of ``params["blocks"]`` (the decoder's
     n_repeats, the encoder's n_encoder_layers: the leaves' leading axis,
     which the JAX package's ``lax.scan`` walks); returns (h, aux_loss), the
-    aux loss summed over blocks."""
+    aux loss summed over blocks.  On a mesh h is this rank's slice as
+    ``layout`` splits it."""
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     n = tree_leaves(params["blocks"])[0].shape[0]
@@ -140,38 +186,47 @@ def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
         if remat:
             h, aux = checkpoint(blocks.block_fwd, layer, h, cfg, angles,
                                 causal, enc_out=enc_out, attn_impl=attn_impl,
-                                use_reentrant=False)
+                                layout=layout, use_reentrant=False)
         else:
             h, aux = blocks.block_fwd(layer, h, cfg, angles, causal,
-                                      enc_out=enc_out, attn_impl=attn_impl)
+                                      enc_out=enc_out, attn_impl=attn_impl,
+                                      layout=layout)
         aux_total = aux_total + aux
     return h, aux_total
 
 
 def _merge_vision(cfg: ModelConfig, h: torch.Tensor,
-                  vision_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+                  vision_embeds: Optional[torch.Tensor],
+                  start: int = 0) -> torch.Tensor:
     """Positions [0, V) of h take ``vision_embeds`` (B, V, D), cast to h's
     dtype; the token ids there are ignored, and their embedding rows get
-    no gradient from them (a ``where``, as in the JAX package)."""
+    no gradient from them (a ``where``, as in the JAX package).  h holds
+    positions ``start``.. (a rank's share of the sequence on a mesh)."""
     if not cfg.vision_tokens or vision_embeds is None:
         return h
     vt = cfg.vision_tokens
     s = h.shape[1]
     vis = torch.nn.functional.pad(vision_embeds.to(h.dtype),
-                                  (0, 0, 0, s - vt))
-    mask = (torch.arange(s, device=h.device) < vt)[None, :, None]
+                                  (0, 0, 0, max(0, start + s - vt)))
+    vis = vis[:, start:start + s]
+    mask = (start + torch.arange(s, device=h.device) < vt)[None, :, None]
     return torch.where(mask, vis, h)
 
 
 def encode(params: PyTree, enc_embeds: torch.Tensor, cfg: ModelConfig,
-           attn_impl: str = "kernel") -> torch.Tensor:
+           attn_impl: str = "kernel", layout=None) -> torch.Tensor:
     """Encoder stack (seamless): frame embeddings (B, S_enc, D), cast to
     ``cfg.dtype``, through the encoder's layers (RoPE over positions
-    0..S_enc-1, bidirectional attention) and its final norm."""
+    0..S_enc-1, bidirectional attention) and its final norm.  On a mesh
+    (``layout``, enc_embeds this rank's batch rows) the frames are not
+    split: each rank encodes all of them, which every decoder position's
+    cross-attention reads."""
     b, s = enc_embeds.shape[:2]
+    if layout is not None:
+        layout = shd.BatchLayout(layout.mesh, layout.batch_dims)
     h, _ = _run_blocks(params["encoder"], enc_embeds.to(DTYPES[cfg.dtype]),
                        cfg, _angles_for(cfg, b, s, enc_embeds.device),
-                       causal=False, attn_impl=attn_impl)
+                       causal=False, attn_impl=attn_impl, layout=layout)
     return rmsnorm(params["encoder"]["final_norm"], h, cfg.norm_eps)
 
 
@@ -179,26 +234,53 @@ def encode(params: PyTree, enc_embeds: torch.Tensor, cfg: ModelConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
+def _forward(params: PyTree, batch: Dict[str, torch.Tensor],
+             cfg: ModelConfig, attn_impl: str, mesh):
+    """(final hidden states, aux loss, layout): on a mesh the hidden states
+    are this rank's slice as ``layout`` splits them, without one the whole
+    batch (layout None)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    vision = batch.get("vision_embeds")
+    angles = _angles_for(cfg, b, s, tokens.device)
+    layout, start = None, 0
+    if mesh is not None:
+        layout = _constrain_batch(cfg, mesh, b, s)
+        start = layout.seq_start(s)
+        tokens = layout.local(tokens)
+        vision = None if vision is None else layout.rows(vision)
+        angles = layout.local(angles, batch=angles.shape[0] == b)
+    h = _embed_tokens(params, tokens)
+    h = _merge_vision(cfg, h, vision, start)
+    enc_out = None
+    if cfg.encoder_decoder:
+        enc = batch["enc_embeds"]
+        enc_out = encode(params, enc if layout is None else layout.rows(enc),
+                         cfg, attn_impl=attn_impl, layout=layout)
+    h, aux = _run_blocks(params, h, cfg, angles, causal=True,
+                         enc_out=enc_out, attn_impl=attn_impl, layout=layout)
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux, layout
+
+
 def forward_hidden(params: PyTree, batch: Dict[str, torch.Tensor],
-                   cfg: ModelConfig, attn_impl: str = "kernel"):
+                   cfg: ModelConfig, attn_impl: str = "kernel", mesh=None):
     """Returns (final hidden states (B,S,D), aux_loss): the MoE routers'
     load-balancing loss summed over layers, 0 without MoE.  batch: tokens
     (B, S); for a vision model optionally vision_embeds (B, V, D), which
     replace the first V positions' token embeddings; for an
     encoder-decoder enc_embeds (B, S_enc, D), the encoder's input, which
-    it needs (a ``KeyError`` without them, as in the JAX package)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    h = _embed_tokens(params, tokens)
-    h = _merge_vision(cfg, h, batch.get("vision_embeds"))
-    enc_out = None
-    if cfg.encoder_decoder:
-        enc_out = encode(params, batch["enc_embeds"], cfg,
-                         attn_impl=attn_impl)
-    angles = _angles_for(cfg, b, s, tokens.device)
-    h, aux = _run_blocks(params, h, cfg, angles, causal=True,
-                         enc_out=enc_out, attn_impl=attn_impl)
-    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
+    it needs (a ``KeyError`` without them, as in the JAX package).
+
+    With ``mesh`` (a ``DeviceMesh``) every rank passes the whole batch and
+    computes its slice as :func:`_constrain_batch` splits it: the
+    embedding of its tokens, RoPE at its positions' global indices, the
+    blocks (attention gathering K/V once a layer when the sequence is
+    split), the final norm.  The hidden states are then a DTensor with
+    that split; the aux loss spans the whole batch on every rank."""
+    h, aux, layout = _forward(params, batch, cfg, attn_impl, mesh)
+    if layout is None:
+        return h, aux
+    return layout.dtensor(h, tuple(batch["tokens"].shape) + h.shape[2:]), aux
 
 
 def _unembed(params: PyTree, h: torch.Tensor, cfg: ModelConfig):
@@ -231,10 +313,16 @@ def lm_loss(params: PyTree, batch: Dict[str, torch.Tensor],
 
 
 def lm_logits(params: PyTree, batch: Dict[str, torch.Tensor],
-              cfg: ModelConfig, attn_impl: str = "kernel") -> torch.Tensor:
-    """Logits (B, S, padded_vocab) over a full prompt."""
-    h, _ = forward_hidden(params, batch, cfg, attn_impl=attn_impl)
-    return _unembed(params, h, cfg)
+              cfg: ModelConfig, attn_impl: str = "kernel",
+              mesh=None) -> torch.Tensor:
+    """Logits (B, S, padded_vocab) over a full prompt; with ``mesh``, a
+    DTensor split as :func:`forward_hidden`'s hidden states are."""
+    h, _, layout = _forward(params, batch, cfg, attn_impl, mesh)
+    logits = _unembed(params, h, cfg)
+    if layout is None:
+        return logits
+    return layout.dtensor(logits, tuple(batch["tokens"].shape)
+                          + logits.shape[2:])
 
 
 # ---------------------------------------------------------------------------

@@ -26,15 +26,24 @@ def mamba_specs(cfg: ModelConfig) -> PyTree:
                       cfg.dt_rank, cfg.ssm_conv_width)
     dt = DTYPES[cfg.param_dtype]
     return {
-        "in_proj": ParamSpec((d, 2 * di), dt),
-        "conv_w": ParamSpec((w, di), dt, init_scale=0.5),
-        "conv_b": ParamSpec((di,), dt, init="zeros"),
-        "x_proj": ParamSpec((di, r + 2 * n), dt),
-        "dt_proj": ParamSpec((r, di), dt),
-        "dt_bias": ParamSpec((di,), dt, init="zeros"),
-        "A_log": ParamSpec((di, n), torch.float32, init="ones"),
-        "D": ParamSpec((di,), torch.float32, init="ones"),
-        "out_proj": ParamSpec((di, d), dt),
+        "in_proj": ParamSpec((d, 2 * di), dt,
+                             logical_axes=("embed", "mamba_inner")),
+        "conv_w": ParamSpec((w, di), dt, init_scale=0.5,
+                            logical_axes=(None, "mamba_inner")),
+        "conv_b": ParamSpec((di,), dt, init="zeros",
+                            logical_axes=("mamba_inner",)),
+        "x_proj": ParamSpec((di, r + 2 * n), dt,
+                            logical_axes=("mamba_inner", None)),
+        "dt_proj": ParamSpec((r, di), dt,
+                             logical_axes=(None, "mamba_inner")),
+        "dt_bias": ParamSpec((di,), dt, init="zeros",
+                             logical_axes=("mamba_inner",)),
+        "A_log": ParamSpec((di, n), torch.float32, init="ones",
+                           logical_axes=("mamba_inner", None)),
+        "D": ParamSpec((di,), torch.float32, init="ones",
+                       logical_axes=("mamba_inner",)),
+        "out_proj": ParamSpec((di, d), dt,
+                              logical_axes=("mamba_inner", "embed")),
     }
 
 

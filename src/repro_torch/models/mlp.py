@@ -12,9 +12,9 @@ def mlp_specs(cfg: ModelConfig) -> PyTree:
     d, f = cfg.d_model, cfg.d_ff
     dt = DTYPES[cfg.param_dtype]
     return {
-        "wi_gate": ParamSpec((d, f), dt),
-        "wi_up": ParamSpec((d, f), dt),
-        "wo": ParamSpec((f, d), dt),
+        "wi_gate": ParamSpec((d, f), dt, logical_axes=("embed", "mlp")),
+        "wi_up": ParamSpec((d, f), dt, logical_axes=("embed", "mlp")),
+        "wo": ParamSpec((f, d), dt, logical_axes=("mlp", "embed")),
     }
 
 

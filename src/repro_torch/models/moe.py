@@ -26,10 +26,14 @@ def moe_specs(cfg: ModelConfig) -> PyTree:
     e = cfg.n_experts
     dt = DTYPES[cfg.param_dtype]
     return {
-        "router": ParamSpec((d, e), dt, init_scale=0.1),
-        "wi_gate": ParamSpec((e, d, f), dt),
-        "wi_up": ParamSpec((e, d, f), dt),
-        "wo": ParamSpec((e, f, d), dt),
+        "router": ParamSpec((d, e), dt, init_scale=0.1,
+                            logical_axes=("embed", None)),
+        "wi_gate": ParamSpec((e, d, f), dt,
+                             logical_axes=("experts", "embed", "mlp")),
+        "wi_up": ParamSpec((e, d, f), dt,
+                           logical_axes=("experts", "embed", "mlp")),
+        "wo": ParamSpec((e, f, d), dt,
+                        logical_axes=("experts", "mlp", "embed")),
     }
 
 

@@ -34,14 +34,20 @@ def mlstm_specs(cfg: ModelConfig) -> PyTree:
     d, di = cfg.d_model, cfg.mlstm_inner
     dt = DTYPES[cfg.param_dtype]
     return {
-        "up": ParamSpec((d, 2 * di), dt),
-        "wq": ParamSpec((di, di), dt),
-        "wk": ParamSpec((di, di), dt),
-        "wv": ParamSpec((di, di), dt),
-        "w_gates": ParamSpec((di, 2 * cfg.n_heads), dt, init_scale=0.1),
+        "up": ParamSpec((d, 2 * di), dt,
+                        logical_axes=("embed", "mlstm_inner")),
+        "wq": ParamSpec((di, di), dt,
+                        logical_axes=("mlstm_inner", "mlstm_inner2")),
+        "wk": ParamSpec((di, di), dt,
+                        logical_axes=("mlstm_inner", "mlstm_inner2")),
+        "wv": ParamSpec((di, di), dt,
+                        logical_axes=("mlstm_inner", "mlstm_inner2")),
+        "w_gates": ParamSpec((di, 2 * cfg.n_heads), dt, init_scale=0.1,
+                             logical_axes=("mlstm_inner", None)),
         "b_gates": ParamSpec((2 * cfg.n_heads,), torch.float32,
                              init="zeros"),
-        "down": ParamSpec((di, d), dt),
+        "down": ParamSpec((di, d), dt,
+                          logical_axes=("mlstm_inner", "embed")),
     }
 
 
@@ -148,11 +154,11 @@ def slstm_specs(cfg: ModelConfig) -> PyTree:
     p = int(d * cfg.xlstm_slstm_proj)
     dt = DTYPES[cfg.param_dtype]
     return {
-        "w_in": ParamSpec((d, 4 * d), dt),           # z, i, f, o inputs
+        "w_in": ParamSpec((d, 4 * d), dt, logical_axes=("embed", None)),           # z, i, f, o inputs
         "r": ParamSpec((4, h, hd, hd), dt, init_scale=0.5),  # block-diag
         "bias": ParamSpec((4 * d,), torch.float32, init="zeros"),
-        "up": ParamSpec((d, 2 * p), dt),
-        "down": ParamSpec((p, d), dt),
+        "up": ParamSpec((d, 2 * p), dt, logical_axes=("embed", "mlp")),
+        "down": ParamSpec((p, d), dt, logical_axes=("mlp", "embed")),
     }
 
 

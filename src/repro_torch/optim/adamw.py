@@ -16,13 +16,15 @@ MLP leaf of h2o-danube-3-4b, (24, 3840, 10240), is 944M elements.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.models.common import DTYPES, PyTree, tree_leaves, tree_map
+from repro_torch.models.common import (DTYPES, PyTree, spec_map, tree_leaves,
+                                       tree_map)
 
 #: elements of a leaf updated at once (float32 temporaries of 64 MB each)
 CHUNK = 1 << 24
@@ -51,6 +53,16 @@ def schedule(opt: OptimizerConfig, step) -> torch.Tensor:
     cos = opt.min_lr + 0.5 * (opt.peak_lr - opt.min_lr) * (
         1 + torch.cos(math.pi * t))
     return torch.where(step < opt.warmup_steps, warm, cos)
+
+
+def opt_state_specs(param_specs: PyTree, opt: OptimizerConfig) -> Dict:
+    """ParamSpec tree -> ParamSpec trees for the (mu, nu) moments: zeros
+    in ``state_dtype``, each leaf's logical axes kept."""
+    dt = DTYPES[opt.state_dtype]
+    moment = spec_map(lambda s: dataclasses.replace(s, dtype=dt,
+                                                    init="zeros"),
+                      param_specs)
+    return {"mu": moment, "nu": moment, "step": None}
 
 
 def init_opt_state(params: PyTree, opt: OptimizerConfig) -> Dict:

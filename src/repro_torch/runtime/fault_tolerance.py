@@ -13,8 +13,10 @@ the failure channel is injectable so the whole machinery is unit-testable:
   slower than ``threshold`` x EWMA.  On real pods the flagged step triggers
   hot-spare swap / re-slice; here the decision log is the artifact.
 
-The JAX package's elastic re-meshing (``runtime/elastic.py``) is not ported
-(ROADMAP A6): the port runs on one device.  A ``step_fn`` that updates the
+Elastic re-meshing is ``runtime/elastic.py`` (a mesh over the ranks that
+survive) with ``Checkpointer.restore(shardings=)`` (each rank keeps its
+slice), ported with the mesh layer (ROADMAP A6c); the loop here restores
+the whole state on one process.  A ``step_fn`` that updates the
 state in place (the port's train step does) replays a failure before the
 first checkpoint from the state as it then stands, not from the initial
 one; ``repro_torch.launch.train`` saves a step-0 checkpoint first.

@@ -80,13 +80,17 @@ def make_train_step(cfg: ModelConfig, opt: OptimizerConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, attn_impl: str = "kernel") -> Callable:
+def make_prefill_step(cfg: ModelConfig, attn_impl: str = "kernel",
+                      mesh=None) -> Callable:
     """Forward-only logits over a full prompt (the inference-prefill cell);
-    attention goes through the ``flash_attention`` kernel."""
+    attention goes through the ``flash_attention`` kernel.  With ``mesh``
+    (a ``DeviceMesh``) every rank passes the whole prompt and gets a
+    DTensor of its slice (``lm.lm_logits``)."""
 
     @torch.no_grad()
     def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]):
-        return lm.lm_logits(params, batch, cfg, attn_impl=attn_impl)
+        return lm.lm_logits(params, batch, cfg, attn_impl=attn_impl,
+                            mesh=mesh)
 
     return prefill_step
 

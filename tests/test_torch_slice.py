@@ -293,6 +293,17 @@ with torch.no_grad():
     lg, caches = lm.decode_step(p, caches, toks[:, :1], 8, cfg)
 assert lg.shape == (1, 1, 512) and caches[0]["ring_k"][:, :, 0].any()
 assert analytic.cell_cost(cfg, SHAPE_BY_NAME["decode_32k"]).bytes > 0
+# the mesh layer: sharding rules, the pipeline, compression, the elastic mesh
+import repro_torch.parallel.pipeline
+from repro_torch.optim.compression import compress_decompress
+from repro_torch.parallel import sharding
+from repro_torch.runtime.elastic import choose_mesh_shape
+assert choose_mesh_shape(511, preferred_model=16) == (16, 16)
+deq, err = compress_decompress(torch.linspace(-1.0, 1.0, 64))
+assert deq.dtype == torch.float32 and float(err.abs().max()) <= 1.0 / 254
+class _Mesh:  # the shape of the 16x16 production mesh, no devices
+    shape, axis_names = {"data": 16, "model": 16}, ("data", "model")
+assert sharding.batch_pspec(_Mesh, 256) == ("data", None)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
