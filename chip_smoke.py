@@ -132,6 +132,19 @@
    elastic_restore (``make_elastic_mesh()`` (1, 4); danube's embedding and
    one block restored with the placements of ``param_pspecs``, each rank's
    slice bitwise); then ``make_compressed_psum`` on a 1-rank NCCL group.
+14. Compute on sharded weights (``parallel/tensor_parallel.py``): whether
+   gloo takes CUDA tensors for reduce_scatter (gloo_probe), then 4 spawned
+   ranks sharing the card over gloo, each holding only its slices of the
+   weights (and moments), the one-process references on rank 0 first:
+   megatron_prefill (phi3-medium-14b at full width and depth on a (1, 4)
+   mesh, 8,192 tokens, 2.5 KV heads a rank, every attention call through
+   the kernel's tc path on the rank's whole GQA groups; held to the
+   one-process kernel route in bf16 and, at 8 layers, in float32),
+   ep_prefill (olmoe-1b-7b on a (1, 4) mesh under megatron and ep_seq, 16
+   experts a rank; drops with the one-process routing pinned equal to
+   the one-process forward's) and megatron_train (one step of
+   h2o-danube-3-4b with fsdp on a (2, 2) mesh, batch 2 x 2,048, against
+   the one-process step's loss and gradients).
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -3605,6 +3618,652 @@ def run_parallel(opts: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Compute on sharded weights (parallel/tensor_parallel.py): megatron_prefill,
+# ep_prefill and megatron_train in TP_RANKS spawned processes sharing the
+# one card over gloo, each rank holding only its slices of the weights (and
+# moments), drawn slice by slice as init_model draws the whole leaves
+# (init_local).  The one-process references run on rank 0 before any rank
+# holds its shards.  Each rank's logits are its columns of the vocabulary;
+# the checks gather them over gloo, as DTensor.full_tensor() is not used on
+# CUDA tensors over gloo (above).  Before them, gloo_probe: whether gloo
+# takes CUDA tensors for reduce_scatter, in a pair of processes of its own.
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4
+TP_SHARE_SLACK = 0.01          # a rank's weight bytes: 1/4 of the whole +-
+TP_F32_DEPTH, TP_F32_TOL = 8, 1e-4
+TP_TRAIN_BATCH = 2             # over data 2 of the (2, 2) mesh
+TP_TRAIN_LEN = 2048            # four ranks' steps share the card
+TP_GRAD_COS = 0.99             # every leaf's gradient against one process
+# its relative L2 error, and |norm ratio - 1| of a leaf and of the whole
+# gradient: twice and six times the largest read on the H100 (0.0316 and
+# 3.3e-4, bf16)
+TP_GRAD_REL, TP_NORM_REL = 0.0625, 2e-3
+
+
+def init_local(cfg, mesh, seed: int, dev, pspecs=None):
+    """This rank's slices of ``lm.init_model(cfg, Generator(dev)
+    .manual_seed(seed))``: every leaf drawn as ``models.common.init_params``
+    draws it (whole, or slice by slice along its leading axis above
+    ``SLICE_DRAW_BYTES``), in its order, and cut to the slice
+    ``param_pspecs`` gives this rank, so that no rank holds a whole
+    model."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import SLICE_DRAW_BYTES
+    from repro_torch.parallel import sharding as shd
+    specs = lm.model_specs(cfg)
+    pspecs = pspecs or shd.param_pspecs(specs, cfg, mesh)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def cut(t, ranges):
+        for d, (lo, hi) in enumerate(ranges):
+            t = t.narrow(d, lo, hi - lo)
+        return t
+
+    def one(spec, pspec):
+        ranges = shd.NamedSharding(mesh, pspec).local_ranges(spec.shape)
+        shape = tuple(hi - lo for lo, hi in ranges)
+        if spec.init in ("zeros", "ones"):
+            fill = torch.zeros if spec.init == "zeros" else torch.ones
+            return fill(shape, dtype=spec.dtype, device=dev)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        scale = spec.init_scale / np.sqrt(max(fan_in, 1))
+        if 4 * int(np.prod(spec.shape)) <= SLICE_DRAW_BYTES:
+            full = torch.randn(spec.shape, generator=g, device=dev) * scale
+            return cut(full.to(spec.dtype), ranges).contiguous()
+        out = torch.empty(shape, dtype=spec.dtype, device=dev)
+        lo, hi = ranges[0]
+        for i in range(spec.shape[0]):
+            part = torch.randn(spec.shape[1:], generator=g, device=dev) \
+                * scale
+            if lo <= i < hi:
+                out[i - lo].copy_(cut(part, ranges[1:]))
+        return out
+
+    def build(s, p):
+        if isinstance(s, dict):
+            vals = {k: build(s[k], p[k]) for k in sorted(s)}
+            return {k: vals[k] for k in s}
+        if isinstance(s, tuple):
+            return tuple(build(a, b) for a, b in zip(s, p))
+        return one(s, p)
+
+    return build(specs, pspecs)
+
+
+def _tp_bytes(tree) -> int:
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _tp_vocab_gather(logits, mesh) -> torch.Tensor:
+    """Every rank's vocabulary columns of its logits, gathered (the whole
+    row on every rank of the ``model`` group)."""
+    from repro_torch.parallel import collectives
+    return collectives.all_gather_cat(logits, mesh, ("model",), -1)
+
+
+def _tp_flash_counts():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return flash_attention.launches, dict(flash_attention.launches_by_path)
+
+
+def _tp_megatron_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
+    """megatron_prefill: ``make_prefill_step(cfg, mesh=)`` under megatron
+    on a (1, world) mesh, each rank holding its slices of every leaf (a
+    quarter of the heads, KV heads split mid-head where they do not divide,
+    the MLP width and the vocabulary), attention through the kernel on its
+    whole GQA groups.  Held in bf16 to the one-process kernel route by
+    compare_routes' rule (WITNESS_RATIO) with the one-process plain route
+    against the kernel route as the witness (on the card: on the CPU the
+    kernel route is the plain one) and the BF16_LOGITS_MEAN backstop, and
+    in float32 at TP_F32_DEPTH layers within TP_F32_TOL."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention.ops import reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.parallel import collectives
+    from repro_torch.train.steps import make_prefill_step
+    mesh = make_mesh((1, world), ("data", "model"), dev.type)
+    cfg = dataclasses.replace(cfg, shard_strategy="megatron")
+    step = make_prefill_step(cfg, mesh=mesh)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), device=dev,
+                           generator=g)
+    batch = {"tokens": tokens}
+    v = cfg.vocab_size
+    out = {"model": cfg.name, "ranks": world, "tokens": seq}
+
+    def agree(a, b):
+        return dict(zip(("max_abs", "mean_abs", "top1"),
+                        logits_agreement(a, b, v)))
+
+    def cut(p):
+        return dict(p, blocks=tree_map(lambda a: a[:TP_F32_DEPTH],
+                                       p["blocks"]))
+
+    ref = ref32 = None
+    if rank == 0:          # one process, before any rank holds its shards
+        full = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+        out["whole_bytes"] = _tp_bytes(full)
+        ref = make_prefill_step(cfg)(full, batch)
+        out["witness"] = agree(make_prefill_step(cfg, attn_impl="plain")(
+            full, batch), ref)
+        p32 = tree_map(lambda a: a.float(), cut(full))
+        del full
+        _free(dev)
+        ref32 = make_prefill_step(cfg)(p32, batch)
+        del p32
+        _free(dev)
+    dist.barrier()
+
+    params = init_local(cfg, mesh, 1, dev)
+    local_bytes = _tp_bytes(params)
+    got = _tp_vocab_gather(step(params, batch).to_local(), mesh)
+    if rank == 0:
+        out["bf16_vs_one_process"] = agree(got, ref)
+    del got, ref
+    _free(dev)
+    dist.barrier()
+    _reset_peak(dev)
+    reset_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    logits = step(params, batch).to_local()
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches, paths = _tp_flash_counts()
+    peak = _peak(dev)
+    finite = bool(torch.isfinite(logits).all())
+    shape = list(logits.shape)
+    del logits
+    _free(dev)
+    stats = torch.tensor([seconds, peak, float(finite), local_bytes,
+                          launches, paths["tc"]], device=dev,
+                         dtype=torch.float64)
+    every = collectives.all_gather_cat(stats[None], mesh, ("model",),
+                                       0).cpu()
+    p32 = tree_map(lambda a: a.float(), cut(params))
+    del params
+    _free(dev)
+    got = _tp_vocab_gather(step(p32, batch).to_local(), mesh)
+    if rank == 0:
+        out["f32_vs_one_process"] = agree(got, ref32)
+        out["f32_depth"] = TP_F32_DEPTH
+    del got, p32, ref32
+    _free(dev)
+    out.update(seconds=float(every[:, 0].max()),
+               seconds_by_rank=every[:, 0].tolist(),
+               peak_gib_by_rank=every[:, 1].tolist(),
+               finite=bool(every[:, 2].all()),
+               bytes_by_rank=[int(b) for b in every[:, 3]],
+               launches_by_rank=[int(n) for n in every[:, 4]],
+               tc_by_rank=[int(n) for n in every[:, 5]],
+               local_logits_shape=shape)
+    out["tokens_s"] = seq / out["seconds"]
+    dist.barrier()
+    return out
+
+
+def _tp_ep_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
+    """ep_prefill: olmoe on a (1, world) mesh under megatron and under
+    ep_seq, each rank holding a quarter of the experts (and under megatron
+    its slices of everything else).  Routing is replicated, so the drops
+    (count_drops) of a run whose routing is the one-process forward's
+    (pin_routing of rank 0's record_routing) equal that forward's exactly;
+    the unpinned runs' drops and routing flips are reported, and the
+    pinned logits held to the one-process kernel route's by the bf16
+    backstop BF16_LOGITS_MEAN."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention.ops import reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel import collectives
+    from repro_torch.train.steps import make_prefill_step
+    mesh = make_mesh((1, world), ("data", "model"), dev.type)
+    g = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq), device=dev,
+                           generator=g)
+    batch = {"tokens": tokens}
+    v = cfg.vocab_size
+    out = {"model": cfg.name, "ranks": world, "tokens": seq}
+    n_layers = cfg.n_repeats * sum(sp.mlp == "moe" for sp in cfg.pattern)
+
+    ref = None
+    # float32 on the wire (gloo takes it on CUDA tensors; ids < 2^24)
+    routing = [torch.empty((seq, cfg.top_k), dtype=torch.float32,
+                           device=dev) for _ in range(n_layers)]
+    if rank == 0:
+        full = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+        out["whole_bytes"] = _tp_bytes(full)
+        with record_routing() as rec, count_drops() as drops:
+            ref = make_prefill_step(cfg)(full, batch)
+        out["one_process_drops"] = [int(d) for d in drops]
+        for dst, src in zip(routing, rec):
+            dst.copy_(src)
+        del full, rec
+        _free(dev)
+    for r in routing:
+        collectives.broadcast(r, 0, mesh.get_group("model"))
+    routing = [r.long() for r in routing]
+    dist.barrier()
+
+    for strategy in ("megatron", "ep_seq"):
+        c = dataclasses.replace(cfg, shard_strategy=strategy)
+        step = make_prefill_step(c, mesh=mesh)
+        _reset_peak(dev)
+        params = init_local(c, mesh, 1, dev)
+        local_bytes = _tp_bytes(params)
+        reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with record_routing() as rec, count_drops() as drops:
+            logits = step(params, batch).to_local()
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        launches, paths = _tp_flash_counts()
+        peak = _peak(dev)
+        res = {"drops": [int(d) for d in drops],
+               "flipped_tokens": int((~routing_agrees(
+                   rec, routing, tokens.shape)).sum())}
+        del rec
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        with pin_routing(routing), count_drops() as drops:
+            logits = step(params, batch).to_local()
+        res["pinned_drops"] = [int(d) for d in drops]
+        full_logits = (_tp_vocab_gather(logits, mesh) if strategy ==
+                       "megatron" else collectives.all_gather_cat(
+                           logits, mesh, ("model",), 1))
+        del logits
+        if rank == 0:
+            res["pinned_vs_one_process"] = dict(zip(
+                ("max_abs", "mean_abs", "top1"),
+                logits_agreement(full_logits, ref, v)))
+        del full_logits, params
+        _free(dev)
+        stats = torch.tensor([seconds, peak, float(finite), local_bytes,
+                              launches, paths["tc"]], device=dev,
+                             dtype=torch.float64)
+        every = collectives.all_gather_cat(stats[None], mesh, ("model",),
+                                           0).cpu()
+        res.update(seconds=float(every[:, 0].max()),
+                   seconds_by_rank=every[:, 0].tolist(),
+                   peak_gib_by_rank=every[:, 1].tolist(),
+                   finite=bool(every[:, 2].all()),
+                   bytes_by_rank=[int(b) for b in every[:, 3]],
+                   launches_by_rank=[int(n) for n in every[:, 4]],
+                   tc_by_rank=[int(n) for n in every[:, 5]])
+        res["tokens_s"] = seq / res["seconds"]
+        out[strategy] = res
+        dist.barrier()
+    del ref
+    return out
+
+
+def _tp_megatron_train(dev, cfg, rank: int, world: int, seq: int) -> dict:
+    """megatron_train: one ``make_train_step(cfg, opt, mesh=)`` step under
+    megatron with fsdp and bf16 moments (jamba-1.5-large's rule) on a (2,
+    2) mesh: each rank holds a quarter of every split leaf and of the
+    moments, gathers each layer's fsdp leaves over data and its batch row.
+    Held against the one-process step's loss and gradients at the same
+    batch, computed on rank 0 before any rank holds its shards: the loss
+    within one bf16 ulp; each leaf's gradient (each rank's slices against
+    the one-process gradient's, on rank 0) by its cosine (at least
+    TP_GRAD_COS), its relative L2 error (at most TP_GRAD_REL) and the
+    ratio of its norm to the one-process one (within TP_NORM_REL of 1), so
+    that a gradient off by a scale fails; the step's global gradient norm
+    within TP_NORM_REL of the one-process gradients' norm.  The step runs
+    the plain attention route: its flash_attention launches are counted
+    and must be 0."""
+    import dataclasses
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention.ops import reset_launches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves, tree_leaves_with_names
+    from repro_torch.optim.adamw import OptimizerConfig, init_opt_state
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(cfg, shard_strategy="megatron", fsdp=True,
+                              opt_state_dtype="bfloat16")
+    mesh = make_mesh((2, world // 2), ("data", "model"), dev.type)
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (TP_TRAIN_BATCH, seq + 1),
+                         device=dev, generator=g)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    opt = OptimizerConfig(peak_lr=3e-3, warmup_steps=1, total_steps=10,
+                          state_dtype=cfg.opt_state_dtype)
+    out = {"model": cfg.name, "ranks": world, "mesh": [2, world // 2],
+           "batch": [TP_TRAIN_BATCH, seq], "fsdp": True,
+           "moments": cfg.opt_state_dtype}
+    pspecs = shd.param_pspecs(lm.model_specs(cfg), cfg, mesh)
+    names = [n for n, _ in tree_leaves_with_names(pspecs)]
+
+    ref_grads = None
+    if rank == 0:
+        full = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+        out["whole_bytes"] = _tp_bytes(full)
+        leaves = tree_leaves(full)
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, _ = lm.lm_loss(full, batch, cfg)
+            ref_grads = [x.cpu() for x in torch.autograd.grad(loss, leaves)]
+        out["one_process_loss"] = float(loss.detach())
+        out["one_process_grad_norm"] = math.sqrt(sum(
+            float(torch.sum(torch.square(x.double()))) for x in ref_grads))
+        del full, leaves, loss
+        _free(dev)
+    dist.barrier()
+
+    params = init_local(cfg, mesh, 1, dev, pspecs)
+    state = init_opt_state(params, opt)
+    local = {"params": _tp_bytes(params),
+             "moments": _tp_bytes((state["mu"], state["nu"]))}
+    seen = {}
+    update = steps.adamw_update
+
+    def spy(p, grads, st, o, m=None, split=None, zero=None):
+        seen["grads"] = grads
+        return update(p, grads, st, o, m, split, zero)
+
+    train = steps.make_train_step(cfg, opt, mesh=mesh)
+    _reset_peak(dev)
+    reset_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with mock.patch.object(steps, "adamw_update", spy):
+        params, state, metrics = train(params, state, batch)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    launches, _ = _tp_flash_counts()
+    peak = _peak(dev)
+    loss = float(metrics["loss"])
+    grads = seen.pop("grads")
+    stats = torch.tensor([seconds, peak, loss, local["params"],
+                          local["moments"], launches], device=dev,
+                         dtype=torch.float64)
+    whole = collectives.all_gather_cat(stats[None], mesh, ("model",), 0)
+    every = collectives.all_gather_cat(whole, mesh, ("data",), 0).cpu()
+    del params, state
+    _free(dev)
+
+    # each rank's gradient slices to rank 0, leaf by leaf
+    world_group = dist.group.WORLD
+    cos, rel, ratio = {}, {}, {}
+    for i, n in enumerate(names):
+        if rank == 0:
+            dot = na = nb = nd = 0.0
+            for r in range(world):
+                if r == 0:
+                    mine = grads[i]
+                else:
+                    mine = torch.empty(
+                        tuple(hi - lo for lo, hi in _tp_ranges(
+                            mesh, pspecs, i, r, ref_grads[i].shape)),
+                        dtype=grads[i].dtype, device=dev)
+                    collectives.recv(mine, r, world_group)
+                want = ref_grads[i]
+                for d, (lo, hi) in enumerate(_tp_ranges(
+                        mesh, pspecs, i, r, want.shape)):
+                    want = want.narrow(d, lo, hi - lo)
+                a = mine.double().reshape(-1)
+                b = want.to(dev).double().reshape(-1)
+                dot += float(a @ b)
+                na += float(a @ a)
+                nb += float(b @ b)
+                nd += float(torch.sum(torch.square(a - b)))
+            cos[n] = dot / max(math.sqrt(na * nb), 1e-300)
+            rel[n] = math.sqrt(nd / max(nb, 1e-300))
+            ratio[n] = math.sqrt(na / max(nb, 1e-300))
+        else:
+            collectives.send(grads[i], 0, world_group)
+    del grads, ref_grads
+    _free(dev)
+    out.update(seconds=float(every[:, 0].max()),
+               seconds_by_rank=every[:, 0].tolist(),
+               peak_gib_by_rank=every[:, 1].tolist(),
+               loss_by_rank=every[:, 2].tolist(),
+               param_bytes_by_rank=[int(b) for b in every[:, 3]],
+               moment_bytes_by_rank=[int(b) for b in every[:, 4]],
+               launches_by_rank=[int(n) for n in every[:, 5]],
+               grad_cos=cos, grad_rel_err=rel, grad_norm_ratio=ratio,
+               loss=loss, grad_norm=float(metrics["grad_norm"]))
+    out["tokens_s"] = TP_TRAIN_BATCH * seq / out["seconds"]
+    dist.barrier()
+    return out
+
+
+def _tp_ranges(mesh, pspecs, i: int, rank: int, shape) -> tuple:
+    """The [start, stop) along each dim of leaf ``i``'s slice on rank
+    ``rank`` of ``mesh`` (row-major), by its PartitionSpec in ``pspecs``."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    sizes = [mesh.size(k) for k in range(len(mesh.mesh_dim_names))]
+    coord = [int(c) for c in np.unravel_index(rank, sizes)]
+    return shd.NamedSharding(mesh, tree_leaves(pspecs)[i]).local_ranges(
+        shape, coord)
+
+
+def tp_worker(rank: int, world: int, store: str, out_dir: str,
+              opts: dict) -> None:
+    """One rank of the compute-on-sharded-weights phases (a spawned
+    process)."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    # four ranks share the card: segments that grow, not a cache per size
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    dev = torch.device(opts["device"], 0) if opts["device"] == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PAR_GROUP_TIMEOUT_S))
+
+    def config(arch):
+        cfg = get_config(arch)
+        if opts.get("smoke"):
+            cfg = dataclasses.replace(cfg.smoke(), dtype="bfloat16",
+                                      param_dtype="bfloat16")
+        return cfg
+
+    out = {}
+    for name, fn in (
+            ("megatron_prefill", lambda: _tp_megatron_prefill(
+                dev, config("phi3-medium-14b"), rank, world,
+                opts["prefill_len"])),
+            ("ep_prefill", lambda: _tp_ep_prefill(
+                dev, config("olmoe-1b-7b"), rank, world,
+                opts["prefill_len"])),
+            ("megatron_train", lambda: _tp_megatron_train(
+                dev, config("h2o-danube-3-4b"), rank, world,
+                opts["train_len"]))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _free(dev)
+        if rank == 0:
+            log(f"  rank 0: {name} done in {time.perf_counter() - t0:.2f} s: "
+                + json.dumps(out[name]))
+    pathlib.Path(out_dir, f"tp{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def probe_worker(rank: int, store: str, out_dir: str) -> None:
+    """One of two ranks that run gloo's ``reduce_scatter`` once on bf16
+    CUDA tensors (the gradients fsdp scatters) and check its result (a
+    spawned process: a collective gloo does not take on CUDA may kill
+    it)."""
+    import datetime
+
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.arange(4, dtype=torch.bfloat16, device=dev) + 10 * rank
+    out = torch.empty(2, dtype=torch.bfloat16, device=dev)
+    dist.reduce_scatter(out, list(x.chunk(2)))
+    want = (torch.arange(4.0) * 2 + 10).chunk(2)[rank].to(torch.bfloat16)
+    pathlib.Path(out_dir, f"probe{rank}.json").write_text(
+        json.dumps(bool(torch.equal(out.cpu(), want))))
+    dist.destroy_process_group()
+
+
+def gloo_probe() -> str:
+    """Whether a gloo group takes CUDA tensors for ``reduce_scatter``, as
+    ``parallel/collectives.py`` assumes, in a pair of processes of its
+    own: "ok" (the right result), "wrong", or the exit codes of a pair
+    that raised or died."""
+    import shutil
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    try:
+        codes = _spawn(probe_worker, [(r, os.path.join(out_dir, "store"),
+                                       out_dir) for r in range(2)], 120)
+        if codes != [0, 0]:
+            return f"exit codes {codes}"
+        oks = [json.loads(pathlib.Path(out_dir, f"probe{r}.json")
+                          .read_text()) for r in range(2)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return "ok" if all(oks) else "wrong"
+
+
+def run_tensor_parallel(opts: dict) -> dict:
+    """The compute-on-sharded-weights phases: TP_RANKS gloo ranks
+    (megatron_prefill, ep_prefill, megatron_train), after the gloo probe
+    on the card.  Their times are gloo on one card."""
+    import shutil
+    import tempfile
+
+    out = {"ranks": TP_RANKS, "backend": "gloo, one card"}
+    if opts["device"] == "cuda":
+        out["gloo_cuda_reduce_scatter"] = gloo_probe()
+        log(f"phase gloo_probe (2 ranks, bf16 CUDA tensors): reduce_scatter "
+            f"{out['gloo_cuda_reduce_scatter']}")
+        assert out["gloo_cuda_reduce_scatter"] == "ok", out
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        store = os.path.join(out_dir, "store")
+        t0 = time.perf_counter()
+        codes = _spawn(tp_worker, [(r, TP_RANKS, store, out_dir, opts)
+                                   for r in range(TP_RANKS)], PAR_DEADLINE_S)
+        out["seconds"] = time.perf_counter() - t0
+        assert codes == [0] * TP_RANKS, f"ranks exited with {codes}"
+        ranks = [json.loads(pathlib.Path(out_dir, f"tp{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    mp, ep, mt = (ranks[0][k] for k in ("megatron_prefill", "ep_prefill",
+                                        "megatron_train"))
+    out.update(megatron_prefill=mp, ep_prefill=ep, megatron_train=mt)
+    cuda = opts["device"] == "cuda"
+    log(f"phase megatron_prefill (gloo, {TP_RANKS} ranks on one card): "
+        f"{mp['model']}, {mp['tokens']} tokens in {mp['seconds']:.3f} s "
+        f"({mp['tokens_s']:.1f} tok/s; by rank {mp['seconds_by_rank']}), "
+        f"weight bytes by rank {mp['bytes_by_rank']} of {mp['whole_bytes']}"
+        f", peak GiB by rank {mp['peak_gib_by_rank']}, flash launches by "
+        f"rank {mp['launches_by_rank']} (tc {mp['tc_by_rank']}), finite "
+        f"{mp['finite']}; bf16 against the one-process kernel route "
+        f"{mp['bf16_vs_one_process']}, witness (one process, plain vs "
+        f"kernel route) {mp['witness']}; float32 at {mp['f32_depth']} layers "
+        f"{mp['f32_vs_one_process']}")
+    for strategy in ("megatron", "ep_seq"):
+        r = ep[strategy]
+        log(f"phase ep_prefill {strategy} (gloo, {TP_RANKS} ranks on one "
+            f"card): {ep['model']}, {ep['tokens']} tokens in "
+            f"{r['seconds']:.3f} s ({r['tokens_s']:.1f} tok/s; by rank "
+            f"{r['seconds_by_rank']}), weight bytes by rank "
+            f"{r['bytes_by_rank']} of {ep['whole_bytes']}, peak GiB by rank "
+            f"{r['peak_gib_by_rank']}, flash launches by rank "
+            f"{r['launches_by_rank']} (tc {r['tc_by_rank']}); drops "
+            f"{sum(r['drops'])} (one process {sum(ep['one_process_drops'])})"
+            f", {r['flipped_tokens']} tokens route differently; with the "
+            f"one-process routing pinned drops {sum(r['pinned_drops'])}, "
+            f"logits against the one-process kernel route "
+            f"{r['pinned_vs_one_process']}")
+    log(f"phase megatron_train (gloo, {TP_RANKS} ranks on one card, mesh "
+        f"{mt['mesh']}, fsdp, {mt['moments']} moments): {mt['model']}, "
+        f"batch {mt['batch']} in "
+        f"{mt['seconds']:.3f} s ({mt['tokens_s']:.1f} tok/s; by rank "
+        f"{mt['seconds_by_rank']}), loss {mt['loss']:.6f} (one process "
+        f"{mt['one_process_loss']:.6f}), grad norm {mt['grad_norm']:.6g} "
+        f"(one process {mt['one_process_grad_norm']:.6g}), flash launches "
+        f"by rank {mt['launches_by_rank']}, "
+        f"param bytes by rank {mt['param_bytes_by_rank']} of "
+        f"{mt['whole_bytes']}, moment bytes by rank "
+        f"{mt['moment_bytes_by_rank']}, peak GiB by rank "
+        f"{mt['peak_gib_by_rank']}; by leaf: gradient cosine "
+        f"{mt['grad_cos']}, relative L2 error {mt['grad_rel_err']}, norm "
+        f"ratio {mt['grad_norm_ratio']}")
+
+    def quarter(by_rank, whole):
+        return all(abs(b / whole - 1 / TP_RANKS) <= TP_SHARE_SLACK
+                   for b in by_rank)
+
+    wit = mp["witness"]
+    cmp = mp["bf16_vs_one_process"]
+    if cuda:
+        assert cmp["mean_abs"] <= WITNESS_RATIO * wit["mean_abs"], (cmp, wit)
+        assert cmp["top1"] >= wit["top1"] - WITNESS_TOP1_SLACK, (cmp, wit)
+    assert cmp["mean_abs"] <= BF16_LOGITS_MEAN, cmp
+    assert mp["f32_vs_one_process"]["max_abs"] <= TP_F32_TOL, mp
+    assert mp["finite"] and quarter(mp["bytes_by_rank"], mp["whole_bytes"]), \
+        mp
+    n_attn = 40 if not opts.get("smoke") else None
+    if cuda:
+        assert mp["tc_by_rank"] == mp["launches_by_rank"] and all(
+            n == (n_attn or n) and n > 0 for n in mp["launches_by_rank"]), mp
+    for strategy in ("megatron", "ep_seq"):
+        r = ep[strategy]
+        assert r["pinned_drops"] == ep["one_process_drops"], (strategy, r)
+        assert r["finite"], r
+        assert r["pinned_vs_one_process"]["mean_abs"] <= BF16_LOGITS_MEAN, r
+        if cuda and strategy == "megatron":
+            assert r["tc_by_rank"] == r["launches_by_rank"] and all(
+                n > 0 for n in r["launches_by_rank"]), r
+    assert quarter(ep["megatron"]["bytes_by_rank"], ep["whole_bytes"]), ep
+    loss = mt["one_process_loss"]
+    assert abs(mt["loss"] - loss) <= abs(loss) * 2 ** -8, mt
+    assert quarter(mt["param_bytes_by_rank"], mt["whole_bytes"]), mt
+    assert min(mt["grad_cos"].values()) >= TP_GRAD_COS, mt["grad_cos"]
+    assert max(mt["grad_rel_err"].values()) <= TP_GRAD_REL, mt
+    # read at full width on the card; the CPU's smoke sizes by the looser
+    norm_rel = TP_NORM_REL if cuda else TP_GRAD_REL
+    assert all(abs(r - 1) <= norm_rel
+               for r in mt["grad_norm_ratio"].values()), mt
+    norm = mt["one_process_grad_norm"]
+    assert abs(mt["grad_norm"] - norm) <= norm_rel * norm, mt
+    assert mt["launches_by_rank"] == [0] * TP_RANKS, mt
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
@@ -3892,6 +4551,20 @@ def main(argv=None) -> None:
                              "prefill_len": args.prefill_len,
                              "compare_len": args.compare_len})
     parallel["compress"] = compress
+    tensor_parallel = run_tensor_parallel({
+        "device": "cuda", "prefill_len": args.compare_len,
+        "train_len": TP_TRAIN_LEN})
+    parallel["tensor_parallel"] = tensor_parallel
+    tp_flash = {
+        "megatron_prefill": sum(
+            tensor_parallel["megatron_prefill"]["launches_by_rank"]),
+        "ep_prefill_megatron": sum(
+            tensor_parallel["ep_prefill"]["megatron"]["launches_by_rank"]),
+        "ep_prefill_ep_seq": sum(
+            tensor_parallel["ep_prefill"]["ep_seq"]["launches_by_rank"]),
+        "megatron_train": sum(
+            tensor_parallel["megatron_train"]["launches_by_rank"])}
+    launches["flash_attention"] += sum(tp_flash.values())
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
@@ -3909,11 +4582,15 @@ def main(argv=None) -> None:
                    lm_out["prefill"]["launches_by_path"],
                    lm_out["serve"]["launches_by_path"],
                    lm_out["decode_window"]["launches_by_path"], emb_paths]
+    tp_tc = sum(tensor_parallel["megatron_prefill"]["tc_by_rank"]) + sum(
+        sum(tensor_parallel["ep_prefill"][k]["tc_by_rank"])
+        for k in ("megatron", "ep_seq"))
     paths = {}
     for path, label in (("tc", "a"), ("short", "b"), ("simt", "a32")):
         r = by_label[label]
         paths[path] = {"shape_label": label, "launches": sum(
-            pp[path] for pp in phase_paths), **{k: r[k] for k in (
+            pp[path] for pp in phase_paths) + (tp_tc if path == "tc" else 0),
+            **{k: r[k] for k in (
                 "shape", "dtype", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err")}}
     paths["tc"]["prefill_full"] = flash_full
@@ -3937,7 +4614,8 @@ def main(argv=None) -> None:
                               "lm_decode_window":
                                   lm_out["decode_window"]["launches"],
                               "embedder": emb_launches, **mixer_flash,
-                              **vlm_flash, **seamless_flash, **phi3_flash},
+                              **vlm_flash, **seamless_flash, **phi3_flash,
+                              **tp_flash},
         "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
         "lm_decode_window": lm_out["decode_window"],
         "lm_decode_ring": lm_out["decode_ring"],

@@ -17,6 +17,13 @@ Options of the config that mean nothing different on one device:
   key blocks it needs (:func:`_seq_dp_attention`).  Without a mesh, or
   where :func:`seq_parallel` says no, it computes what ``megatron``
   computes, as the JAX package does without a mesh.
+* ``shard_strategy="megatron"`` on a mesh whose ``model`` dim has more
+  than one rank splits the flat head dims of ``wq``, ``wk``, ``wv`` and
+  ``wo`` over it, where they divide, as the rule's contiguous slices,
+  which may end inside a head: :func:`attention_fwd` with ``tp`` (a
+  ``parallel.tensor_parallel.ModelGroup``) computes the heads of its
+  query columns, widened to whole GQA groups, and sums the ranks' row
+  blocks of ``wo`` (:func:`_tp_attention`).
 * ``decode_cache_update="dus"`` writes the new token's slot by
   ``dynamic_update_slice`` where ``"masked"`` rewrites the cache through a
   one-hot ``where``; both give the same values, and the port writes that
@@ -35,7 +42,7 @@ from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      flash_attention_ref)
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import DTYPES, ParamSpec, PyTree, rmsnorm
-from repro_torch.parallel import collectives
+from repro_torch.parallel import collectives, tensor_parallel
 
 #: ``attn_impl`` values: the kernel's wrapper (the plain version on CPU
 #: tensors) or the plain version on any device
@@ -185,13 +192,80 @@ def _seq_dp_attention(q, k, v, cfg: ModelConfig, causal: bool, window: int,
 
 
 # ---------------------------------------------------------------------------
+# Tensor-parallel attention (megatron on a model dim)
+# ---------------------------------------------------------------------------
+
+def _tp_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp,
+                  kv_x: Optional[torch.Tensor], angles, causal: bool,
+                  window: int, impl: str) -> torch.Tensor:
+    """Attention on this rank's share of the heads: ``wq``'s columns
+    [c0, c1) and ``wo``'s rows [c0, c1), possibly inside a head; ``wk``
+    and ``wv`` split (or not) on their own columns.
+
+    The rank computes the KV heads [g0, g1) whose query groups cover its
+    columns (``tensor_parallel.head_span``), so the kernel gets whole
+    groups in its ``h // G`` layout: q's columns of heads [g0 G, g1 G) and
+    k/v's of heads [g0, g1), gathered over ``model`` wherever any rank's
+    own columns are not exactly those (the decision is the same on every
+    rank, so every rank takes part in the gather).  It keeps o's columns
+    [c0, c1) and returns its partial product with ``wo``, summed over
+    ``model``."""
+    hd = cfg.resolved_head_dim
+    g = cfg.n_heads // cfg.n_kv_heads
+    lq, lk = params["wq"].shape[1], params["wk"].shape[1]
+    k_split = tp.split(lk, cfg.n_kv_heads * hd)
+    spans = [tensor_parallel.head_span(*tp.span(lq, r), hd, g)
+             for r in range(tp.size)]
+    g0, g1 = spans[tp.rank]
+    gather_q = any((a * g * hd, b * g * hd) != tp.span(lq, r)
+                   for r, (a, b) in enumerate(spans))
+    gather_kv = k_split and any((a * hd, b * hd) != tp.span(lk, r)
+                                for r, (a, b) in enumerate(spans))
+    xs = tp.copy(x)
+    kv_src = xs if kv_x is None else tp.copy(kv_x)
+
+    def project(w, src, split, gather, lo, hi):
+        y = torch.matmul(src, w if split else tp.copy(w))
+        if gather:
+            return tp.gather(y, -1)[..., lo:hi]
+        return y if split else y[..., lo:hi]
+
+    q = project(params["wq"], xs, True, gather_q, g0 * g * hd, g1 * g * hd)
+    k = project(params["wk"], kv_src, k_split, gather_kv, g0 * hd, g1 * hd)
+    v = project(params["wv"], kv_src, k_split, gather_kv, g0 * hd, g1 * hd)
+    q = q.reshape(*q.shape[:2], -1, hd)
+    k = k.reshape(*k.shape[:2], -1, hd)
+    v = v.reshape(*v.shape[:2], -1, hd)
+    if "q_norm" in params:
+        q = rmsnorm({"scale": tp.copy(params["q_norm"])}, q, cfg.norm_eps)
+        k = rmsnorm({"scale": tp.copy(params["k_norm"])}, k, cfg.norm_eps)
+    if angles is not None and kv_x is None:
+        q = rope_lib.apply_rope(q, angles)
+        k = rope_lib.apply_rope(k, angles)
+    o = _attend(q, k, v, causal, window, impl)
+    c0, c1 = tp.span(lq)
+    base = g0 * g * hd
+    o = o.reshape(*o.shape[:2], -1)[..., c0 - base:c1 - base]
+    return tp.reduce(torch.matmul(o, params["wo"]))
+
+
+def _attend(q, k, v, causal: bool, window: int, impl: str) -> torch.Tensor:
+    if impl == "kernel":
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+    if impl == "plain":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    raise ValueError(f"attn impl {impl!r}; have {ATTN_IMPLS}")
+
+
+# ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
 def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
                   causal: bool = True, angles: Optional[torch.Tensor] = None,
                   kv_x: Optional[torch.Tensor] = None,
-                  impl: str = "kernel", mesh=None) -> torch.Tensor:
+                  impl: str = "kernel", mesh=None, tp=None) -> torch.Tensor:
     """Full-sequence attention (training / prefill), x (B,S,D).  With
     ``kv_x`` (B,Skv,D), cross-attention: keys and values from ``kv_x``, no
     RoPE, no window, not causal.
@@ -207,26 +281,28 @@ def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
     share, from :func:`_local_blocked_attention` on any ``impl``, as the
     JAX package's sharded path computes it.  Under other strategies, for
     cross-attention, or on a mesh without a ``model`` dim, ``mesh`` is not
-    used."""
-    q, k, v = _project_qkv(params, x, cfg, kv_x)
+    used.
+
+    With ``tp`` (a ``parallel.tensor_parallel.ModelGroup``) and ``wq``
+    split over it, params hold this rank's slices and x the rank's copy of
+    the (replicated) activations: :func:`_tp_attention`."""
     cross = kv_x is not None
+    causal = causal and not cross
+    window = 0 if cross else cfg.sliding_window
+    if tp is not None and tp.split(params["wq"].shape[1],
+                                   cfg.n_heads * cfg.resolved_head_dim):
+        return _tp_attention(params, x, cfg, tp, kv_x, angles, causal,
+                             window, impl)
+    q, k, v = _project_qkv(params, x, cfg, kv_x)
     if angles is not None and not cross:
         q = rope_lib.apply_rope(q, angles)
         k = rope_lib.apply_rope(k, angles)
-    causal = causal and not cross
-    window = 0 if cross else cfg.sliding_window
     if (mesh is not None and not cross
             and cfg.shard_strategy in SEQ_STRATEGIES
             and "model" in tuple(mesh.mesh_dim_names)):
         return _out_proj(params, _seq_dp_attention(q, k, v, cfg, causal,
                                                    window, mesh), cfg)
-    if impl == "kernel":
-        o = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
-    elif impl == "plain":
-        o = flash_attention_ref(q, k, v, causal=causal, window=window)
-    else:
-        raise ValueError(f"attn impl {impl!r}; have {ATTN_IMPLS}")
-    return _out_proj(params, o, cfg)
+    return _out_proj(params, _attend(q, k, v, causal, window, impl), cfg)
 
 
 def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,

@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import DTYPES, PyTree, rmsnorm, rmsnorm_specs
+from repro_torch.parallel import collectives, tensor_parallel
 
 _MIXER_SPECS = {"attn": attention.attention_specs, "mamba": mamba.mamba_specs,
                 "mlstm": xlstm.mlstm_specs, "slstm": xlstm.slstm_specs}
@@ -55,19 +56,35 @@ def _mlp_out(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
              spec: LayerSpec, layout=None):
     """The residual branch of the layer's MLP and its aux loss (None
     without one).  On a mesh (``layout``, h this rank's slice) the MoE
-    layer routes the whole batch: its groups, capacities and aux loss span
-    every token, so each rank gathers them, runs every expert (the weights
-    are replicated; expert-parallel compute is ROADMAP 6e) and keeps its
-    slice."""
+    layer routes the whole batch's groups: where this rank's tokens are
+    whole groups of it (``megatron``: its batch rows, every position) it
+    routes them and the aux loss spans the ranks; otherwise (``ep_seq``,
+    or rows shorter than a group) it gathers every token (the gradient
+    scattered back) and keeps its slice of the output, and the aux loss's
+    gradient is its batch rows' share.  Each rank runs its experts (split
+    over ``model``); the dense MLP splits its width over ``model``."""
+    tp = tensor_parallel.model_group(None if layout is None
+                                     else layout.mesh)
     if spec.mlp == "dense":
         return mlp.mlp_fwd(params["mlp"], rmsnorm(params["norm2"], h,
-                                                  cfg.norm_eps)), None
+                                                  cfg.norm_eps),
+                           tp, cfg.d_ff), None
     if spec.mlp == "moe":
         x = rmsnorm(params["norm2"], h, cfg.norm_eps)
         if layout is None:
             return moe.moe_fwd(params["moe"], x, cfg)
-        out, aux = moe.moe_fwd(params["moe"], layout.gather(x), cfg)
-        return layout.local(out), aux
+        rows = collectives.group_size(layout.mesh, layout.batch_dims)
+        tokens = x.shape[0] * rows * x.shape[1]
+        group = min(cfg.moe_group_size, tokens)
+        if not layout.seq_dims and (x.shape[0] * x.shape[1]) % group == 0:
+            return moe.moe_fwd(params["moe"], x, cfg, tp, tokens=tokens,
+                               batch=(layout.mesh, layout.batch_dims)
+                               if rows > 1 else None)
+        for dims, dim in ((layout.seq_dims, 1), (layout.batch_dims, 0)):
+            if dims:
+                x = tensor_parallel.gather(x, layout.mesh, dims, dim)
+        out, aux = moe.moe_fwd(params["moe"], x, cfg, tp)
+        return layout.local(out), tensor_parallel.share_of(aux / rows, aux)
     return None, None
 
 
@@ -77,7 +94,8 @@ def _recurrent(fn, x: torch.Tensor, layout):
     keeps its positions."""
     if layout is None or not layout.seq_dims:
         return fn(x)
-    return layout.local(fn(layout.gather(x, batch=False)), batch=False)
+    return layout.local(fn(tensor_parallel.gather(
+        x, layout.mesh, layout.seq_dims, 1)), batch=False)
 
 
 def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
@@ -91,24 +109,29 @@ def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
     On a mesh, ``layout`` (a ``parallel.sharding.BatchLayout``) says how h
     is split, and h is this rank's slice: attention gathers K/V once when
     the sequence is split, a recurrent mixer and the MoE layer gather what
-    they span (:func:`_recurrent`, :func:`_mlp_out`), and the norms and a
-    dense MLP are local."""
+    they span (:func:`_recurrent`, :func:`_mlp_out`), and the norms are
+    local.  Under ``megatron`` params hold this rank's slices, h is
+    replicated over ``model``, and each mixer and MLP computes on its
+    share of the heads, channels or experts (``tp``) and sums over
+    ``model``."""
+    tp = tensor_parallel.model_group(None if layout is None
+                                     else layout.mesh)
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
     if spec.mixer == "attn":
         mixed = attention.attention_fwd(
             params["attn"], x, cfg, causal=causal, angles=angles,
             impl=attn_impl,
             mesh=layout.mesh if layout is not None and layout.seq_dims
-            else None)
+            else None, tp=tp)
     elif spec.mixer == "mamba":
         mixed = _recurrent(lambda t: mamba.mamba_fwd(params["mamba"], t,
-                                                     cfg), x, layout)
+                                                     cfg, tp), x, layout)
     elif spec.mixer == "mlstm":
         mixed = _recurrent(lambda t: xlstm.mlstm_fwd(params["mlstm"], t,
-                                                     cfg), x, layout)
+                                                     cfg, tp), x, layout)
     elif spec.mixer == "slstm":
         mixed = _recurrent(lambda t: xlstm.slstm_fwd(params["slstm"], t,
-                                                     cfg), x, layout)
+                                                     cfg, tp), x, layout)
     else:
         raise ValueError(spec.mixer)
     h = h + mixed
@@ -116,7 +139,7 @@ def layer_fwd(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
         xc = rmsnorm(params["norm_cross"], h, cfg.norm_eps)
         h = h + attention.attention_fwd(params["cross_attn"], xc, cfg,
                                         causal=False, kv_x=enc_out,
-                                        impl=attn_impl)
+                                        impl=attn_impl, tp=tp)
     out, aux = _mlp_out(params, h, cfg, spec, layout)
     if out is not None:
         h = h + out

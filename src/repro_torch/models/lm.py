@@ -27,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -36,6 +37,7 @@ from repro_torch.models.common import (DTYPES, ParamSpec, PyTree,
                                        init_params, params_from_jax, rmsnorm,
                                        rmsnorm_specs, stack_specs, take_layer,
                                        tree_leaves, unstack_layers)
+from repro_torch.parallel import collectives, tensor_parallel
 from repro_torch.parallel import sharding as shd
 
 __all__ = ["model_specs", "init_model", "params_from_jax", "encode",
@@ -57,22 +59,16 @@ def _constrain_batch(cfg: ModelConfig, mesh, batch: int,
     * ``seq_dp``, ``ep_seq``: the batch over (pod, data) where it divides,
       and the sequence over ``model`` where
       ``attention.seq_parallel`` allows (each attention layer then gathers
-      K/V once); ``ep_seq``'s experts stay replicated here, their
-      expert-parallel compute is ROADMAP 6e;
-    * ``megatron``: the batch over (pod, data).  Its weights are split over
-      ``model``, which needs tensor-parallel compute on sharded weights
-      (ROADMAP 6e), so a ``model`` dim of more than one rank raises.
+      K/V once); ``ep_seq``'s experts are split over ``model``, and each
+      rank runs its own on every token;
+    * ``megatron``: the batch over (pod, data), replicated over ``model``,
+      over which the weights are split: each layer computes on this rank's
+      heads, channels or experts and sums over ``model``
+      (``parallel.tensor_parallel``).
 
-    Under the first two the weights are replicated, so the norms and a
-    dense MLP need no collective."""
-    names = tuple(mesh.mesh_dim_names)
+    Under ``pure_dp`` and ``seq_dp`` the weights are replicated, so the
+    norms and a dense MLP need no collective."""
     strategy = cfg.shard_strategy
-    if (strategy not in ("pure_dp",) + attention.SEQ_STRATEGIES
-            and "model" in names and mesh.size(names.index("model")) > 1):
-        raise NotImplementedError(
-            f"shard_strategy {strategy!r} on a mesh with a 'model' dim of "
-            f"{mesh.size(names.index('model'))} ranks needs tensor-parallel "
-            "compute on sharded weights (ROADMAP 6e)")
     bspec = shd.batch_pspec(mesh, batch, strategy=(
         "pure_dp" if strategy == "pure_dp" else "megatron"))
     batch_dims = shd.axis_members(bspec[0])
@@ -124,26 +120,47 @@ class _EmbedLookup(torch.autograd.Function):
     """``table[tokens]`` whose backward sums each token's contributions in
     float32 and casts the table's gradient once.  Indexing's own backward
     (``index_put_`` with accumulate) sums in the table's dtype: in bfloat16
-    a frequent token's running sum stalls once it outgrows each addend."""
+    a frequent token's running sum stalls once it outgrows each addend.
+
+    With ``start`` (a vocab-parallel table: this rank's rows start..),
+    tokens outside the rows give zeros and no gradient."""
 
     @staticmethod
-    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor):
-        ctx.save_for_backward(tokens)
+    def forward(ctx, table: torch.Tensor, tokens: torch.Tensor,
+                start: Optional[int] = None):
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
-        return table[tokens]
+        if start is None:
+            ctx.save_for_backward(tokens, None)
+            return table[tokens]
+        rows = tokens - start
+        inside = (rows >= 0) & (rows < table.shape[0])
+        rows = torch.where(inside, rows, 0)
+        ctx.save_for_backward(rows, inside)
+        return table[rows] * inside[..., None].to(table.dtype)
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        (tokens,) = ctx.saved_tensors
+        tokens, inside = ctx.saved_tensors
         acc = torch.zeros(ctx.table_shape, dtype=torch.float32,
                           device=grad.device)
+        grad = grad.float()
+        if inside is not None:
+            grad = grad * inside[..., None]
         acc.index_add_(0, tokens.reshape(-1),
-                       grad.reshape(-1, ctx.table_shape[-1]).float())
-        return acc.to(ctx.table_dtype), None
+                       grad.reshape(-1, ctx.table_shape[-1]))
+        return acc.to(ctx.table_dtype), None, None
 
 
-def _embed_tokens(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    return _EmbedLookup.apply(params["embed"], tokens)
+def _embed_tokens(params: PyTree, tokens: torch.Tensor, cfg=None,
+                  tp=None) -> torch.Tensor:
+    """The tokens' rows of ``embed``; with ``tp`` and the vocabulary split
+    over it, each rank looks up its rows and the lookups are summed over
+    ``model``."""
+    table = params["embed"]
+    if tp is None or not tp.split(table.shape[0], cfg.padded_vocab):
+        return _EmbedLookup.apply(table, tokens)
+    start = tp.span(table.shape[0])[0]
+    return tp.reduce(_EmbedLookup.apply(table, tokens, start))
 
 
 def _angles_for(cfg: ModelConfig, batch: int, seq: int, device,
@@ -173,24 +190,32 @@ def _angles_for(cfg: ModelConfig, batch: int, seq: int, device,
 
 def _run_blocks(params: PyTree, h: torch.Tensor, cfg: ModelConfig, angles,
                 causal: bool, enc_out: Optional[torch.Tensor] = None,
-                attn_impl: str = "kernel", layout=None):
+                attn_impl: str = "kernel", layout=None, pspecs=None):
     """Loop over the stacked blocks of ``params["blocks"]`` (the decoder's
     n_repeats, the encoder's n_encoder_layers: the leaves' leading axis,
     which the JAX package's ``lax.scan`` walks); returns (h, aux_loss), the
     aux loss summed over blocks.  On a mesh h is this rank's slice as
-    ``layout`` splits it."""
+    ``layout`` splits it, and each layer's leaves that ``pspecs`` (the
+    blocks' PartitionSpecs) split over (pod, data) are gathered before it
+    (fsdp; inside the rematerialised block, so the backward gathers them
+    again)."""
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     n = tree_leaves(params["blocks"])[0].shape[0]
+
+    def run(layer, h):
+        if pspecs is not None:
+            layer = tensor_parallel.gather_fsdp(layer, pspecs["blocks"],
+                                                layout.mesh, offset=1)
+        return blocks.block_fwd(layer, h, cfg, angles, causal,
+                                enc_out=enc_out, attn_impl=attn_impl,
+                                layout=layout)
+
     for layer in unstack_layers(params["blocks"], n):
         if remat:
-            h, aux = checkpoint(blocks.block_fwd, layer, h, cfg, angles,
-                                causal, enc_out=enc_out, attn_impl=attn_impl,
-                                layout=layout, use_reentrant=False)
+            h, aux = checkpoint(run, layer, h, use_reentrant=False)
         else:
-            h, aux = blocks.block_fwd(layer, h, cfg, angles, causal,
-                                      enc_out=enc_out, attn_impl=attn_impl,
-                                      layout=layout)
+            h, aux = run(layer, h)
         aux_total = aux_total + aux
     return h, aux_total
 
@@ -214,52 +239,81 @@ def _merge_vision(cfg: ModelConfig, h: torch.Tensor,
 
 
 def encode(params: PyTree, enc_embeds: torch.Tensor, cfg: ModelConfig,
-           attn_impl: str = "kernel", layout=None) -> torch.Tensor:
+           attn_impl: str = "kernel", layout=None,
+           pspecs=None) -> torch.Tensor:
     """Encoder stack (seamless): frame embeddings (B, S_enc, D), cast to
     ``cfg.dtype``, through the encoder's layers (RoPE over positions
     0..S_enc-1, bidirectional attention) and its final norm.  On a mesh
     (``layout``, enc_embeds this rank's batch rows) the frames are not
     split: each rank encodes all of them, which every decoder position's
-    cross-attention reads."""
+    cross-attention reads; under ``megatron`` on the rank's heads and
+    width, as the decoder (``pspecs``: the model's PartitionSpecs, for
+    fsdp)."""
     b, s = enc_embeds.shape[:2]
     if layout is not None:
         layout = shd.BatchLayout(layout.mesh, layout.batch_dims)
-    h, _ = _run_blocks(params["encoder"], enc_embeds.to(DTYPES[cfg.dtype]),
+    enc = params["encoder"]
+    final = enc["final_norm"]
+    if pspecs is not None:
+        final = tensor_parallel.gather_fsdp(final,
+                                            pspecs["encoder"]["final_norm"],
+                                            layout.mesh)
+    h, _ = _run_blocks(enc, enc_embeds.to(DTYPES[cfg.dtype]),
                        cfg, _angles_for(cfg, b, s, enc_embeds.device),
-                       causal=False, attn_impl=attn_impl, layout=layout)
-    return rmsnorm(params["encoder"]["final_norm"], h, cfg.norm_eps)
+                       causal=False, attn_impl=attn_impl, layout=layout,
+                       pspecs=None if pspecs is None else pspecs["encoder"])
+    return rmsnorm(final, h, cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
+#: the leaves outside the blocks that the forward reads whole on a rank
+_TOP = ("embed", "unembed", "final_norm")
+
+
 def _forward(params: PyTree, batch: Dict[str, torch.Tensor],
              cfg: ModelConfig, attn_impl: str, mesh):
-    """(final hidden states, aux loss, layout): on a mesh the hidden states
-    are this rank's slice as ``layout`` splits them, without one the whole
-    batch (layout None)."""
+    """(final hidden states, aux loss, layout, top): on a mesh the hidden
+    states are this rank's slice as ``layout`` splits them, without one
+    the whole batch (layout None); ``top`` holds the leaves of
+    :data:`_TOP`, gathered over (pod, data) where fsdp splits them.
+
+    On a mesh ``params`` are this rank's slices of the leaves, as
+    ``parallel.sharding.param_pspecs`` gives them (local tensors, or the
+    DTensors of ``shard_tree`` and ``Checkpointer.restore(shardings=)``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     vision = batch.get("vision_embeds")
     angles = _angles_for(cfg, b, s, tokens.device)
-    layout, start = None, 0
+    layout, start, tp, pspecs = None, 0, None, None
     if mesh is not None:
         layout = _constrain_batch(cfg, mesh, b, s)
         start = layout.seq_start(s)
         tokens = layout.local(tokens)
         vision = None if vision is None else layout.rows(vision)
         angles = layout.local(angles, batch=angles.shape[0] == b)
-    h = _embed_tokens(params, tokens)
+        params = shd.to_local(params)
+        tp = tensor_parallel.model_group(mesh)
+        pspecs = shd.param_pspecs(model_specs(cfg), cfg, mesh)
+    top = {k: params[k] for k in _TOP if k in params}
+    if pspecs is not None:
+        top = tensor_parallel.gather_fsdp(top, {k: pspecs[k] for k in top},
+                                          mesh)
+    h = (_embed_tokens(top, tokens) if tp is None
+         else _embed_tokens(top, tokens, cfg, tp))
     h = _merge_vision(cfg, h, vision, start)
     enc_out = None
     if cfg.encoder_decoder:
         enc = batch["enc_embeds"]
         enc_out = encode(params, enc if layout is None else layout.rows(enc),
-                         cfg, attn_impl=attn_impl, layout=layout)
+                         cfg, attn_impl=attn_impl, layout=layout,
+                         pspecs=pspecs)
     h, aux = _run_blocks(params, h, cfg, angles, causal=True,
-                         enc_out=enc_out, attn_impl=attn_impl, layout=layout)
-    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux, layout
+                         enc_out=enc_out, attn_impl=attn_impl, layout=layout,
+                         pspecs=pspecs)
+    return rmsnorm(top["final_norm"], h, cfg.norm_eps), aux, layout, top
 
 
 def forward_hidden(params: PyTree, batch: Dict[str, torch.Tensor],
@@ -272,57 +326,149 @@ def forward_hidden(params: PyTree, batch: Dict[str, torch.Tensor],
     it needs (a ``KeyError`` without them, as in the JAX package).
 
     With ``mesh`` (a ``DeviceMesh``) every rank passes the whole batch and
-    computes its slice as :func:`_constrain_batch` splits it: the
+    its slices of the parameters (see :func:`_forward`), and computes its
+    slice of the activations as :func:`_constrain_batch` splits them: the
     embedding of its tokens, RoPE at its positions' global indices, the
     blocks (attention gathering K/V once a layer when the sequence is
-    split), the final norm.  The hidden states are then a DTensor with
+    split; under ``megatron`` each layer on the rank's share of the
+    weights), the final norm.  The hidden states are then a DTensor with
     that split; the aux loss spans the whole batch on every rank."""
-    h, aux, layout = _forward(params, batch, cfg, attn_impl, mesh)
+    h, aux, layout, _ = _forward(params, batch, cfg, attn_impl, mesh)
     if layout is None:
         return h, aux
     return layout.dtensor(h, tuple(batch["tokens"].shape) + h.shape[2:]), aux
 
 
-def _unembed(params: PyTree, h: torch.Tensor, cfg: ModelConfig):
+def _vocab_split(top: PyTree, cfg: ModelConfig, tp) -> bool:
+    """Whether the logits' vocabulary is split over ``tp`` (the table's
+    rows, tied, or the unembedding's columns)."""
+    if tp is None:
+        return False
+    v = (top["embed"].shape[0] if cfg.tie_embeddings
+         else top["unembed"].shape[1])
+    return tp.split(v, cfg.padded_vocab)
+
+
+def _unembed(params: PyTree, h: torch.Tensor, cfg: ModelConfig, tp=None):
+    """Logits (B,S,V); with the vocabulary split over ``tp``, this rank's
+    columns of them (h the rank's replicated copy)."""
+    if _vocab_split(params, cfg, tp):
+        h = tp.copy(h)
     if cfg.tie_embeddings:
         return torch.matmul(h, params["embed"].t())
     return torch.matmul(h, params["unembed"])
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """Cross-entropy over logits split on the vocabulary over a group:
+    logits (..., V/n) float32 are this rank's columns from ``start``; the
+    max and the sum of exponentials are reduced over the group, and the
+    target's logit comes from the rank that holds it.  Returns the
+    per-token ``logsumexp - target logit``, the same on every rank; the
+    gradient is this rank's columns of ``softmax - onehot``."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, mesh, dims):
+        n = logits.shape[-1]
+        m = logits.amax(dim=-1, keepdim=True)
+        collectives.all_reduce(m, mesh, dims, op=dist.ReduceOp.MAX)
+        e = torch.exp(logits - m)
+        se = collectives.all_reduce(e.sum(dim=-1, keepdim=True), mesh, dims)
+        rows = targets.long() - start
+        inside = (rows >= 0) & (rows < n)
+        rows = torch.where(inside, rows, 0)
+        true = torch.gather(logits, -1, rows[..., None])[..., 0]
+        true = collectives.all_reduce(torch.where(inside, true, 0.0), mesh,
+                                      dims)
+        ctx.save_for_backward(e.div_(se), rows, inside)
+        return m[..., 0] + torch.log(se[..., 0]) - true
+
+    @staticmethod
+    def backward(ctx, g):
+        p, rows, inside = ctx.saved_tensors
+        grad = p.scatter_add(-1, rows[..., None],
+                             -inside[..., None].to(p.dtype))
+        return grad * g[..., None], None, None, None, None
+
+
 def lm_loss(params: PyTree, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig, attn_impl: str = "plain"):
+            cfg: ModelConfig, attn_impl: str = "plain", mesh=None):
     """Cross-entropy over the real vocabulary (padded columns masked), mean
     over the tokens whose target is >= 0.  batch: tokens, targets (B, S).
-    Returns (loss + aux_loss, {"ce_loss", "aux_loss", "tokens"})."""
-    h, aux = forward_hidden(params, batch, cfg, attn_impl=attn_impl)
-    logits = _unembed(params, h, cfg).float()
+    Returns (loss + aux_loss, {"ce_loss", "aux_loss", "tokens"}).
+
+    With ``mesh`` (the sequence not split over ``model``: under
+    ``seq_dp`` and ``ep_seq`` where ``attention.seq_parallel`` says no),
+    every rank passes the whole batch and its slices of the parameters;
+    the values are the whole batch's on every rank, and the gradient of
+    the returned loss is this rank's share: its tokens' (a batch
+    replicated over (pod, data) divides it by the copies), summed over
+    the ranks by ``train.steps``.  Under
+    ``megatron`` the cross-entropy is vocab-parallel (the JAX package
+    constrains the logits to the vocabulary over ``model``)."""
+    h, aux, layout, top = _forward(params, batch, cfg, attn_impl, mesh)
+    if layout is not None and layout.seq_dims and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "lm_loss's gradient with the sequence split over 'model' "
+            f"({cfg.shard_strategy!r}): the JAX package's sequence-parallel "
+            "attention walks its keys in a fori_loop of dynamic bounds, "
+            "which jax.grad refuses, so it has no such train step")
+    tp = None if mesh is None else tensor_parallel.model_group(mesh)
+    split = _vocab_split(top, cfg, tp)
+    logits = _unembed(top, h, cfg, tp).float()
+    start = tp.span(logits.shape[-1])[0] if split else 0
     if cfg.padded_vocab > cfg.vocab_size:
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+        pad = start + torch.arange(logits.shape[-1], device=logits.device) \
             >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
     targets = batch["targets"]
-    lse = torch.logsumexp(logits, dim=-1)
-    true_logit = torch.gather(logits, -1,
-                              targets.clamp_min(0)[..., None].long())[..., 0]
+    if layout is not None:
+        targets = layout.local(targets)
+    if split:
+        nll = _VocabParallelCE.apply(logits, targets, start, mesh,
+                                     tp.dims)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        true_logit = torch.gather(
+            logits, -1, targets.clamp_min(0)[..., None].long())[..., 0]
+        nll = lse - true_logit
     token_mask = (targets >= 0).float()
-    nll = (lse - true_logit) * token_mask
+    nll = nll * token_mask
     n_tokens = torch.sum(token_mask)
-    loss = torch.sum(nll) / torch.clamp_min(n_tokens, 1.0)
+    if layout is None:
+        loss = torch.sum(nll) / torch.clamp_min(n_tokens, 1.0)
+    else:
+        dims = layout.batch_dims + layout.seq_dims
+        n_tokens = collectives.all_reduce(n_tokens, mesh, dims)
+        share = torch.sum(nll) / torch.clamp_min(n_tokens, 1.0)
+        loss = tensor_parallel.share_of(share, collectives.all_reduce(
+            share.detach().clone(), mesh, dims))
     metrics = {"ce_loss": loss, "aux_loss": aux, "tokens": n_tokens}
-    return loss + aux, metrics
+    total = loss + aux
+    copies = 1 if layout is None else collectives.group_size(
+        mesh, tensor_parallel.replicas_of(layout.batch_dims, mesh,
+                                          shd.batch_axes(mesh)))
+    if copies > 1:
+        total = tensor_parallel.share_of(total / copies, total)
+    return total, metrics
 
 
 def lm_logits(params: PyTree, batch: Dict[str, torch.Tensor],
               cfg: ModelConfig, attn_impl: str = "kernel",
               mesh=None) -> torch.Tensor:
     """Logits (B, S, padded_vocab) over a full prompt; with ``mesh``, a
-    DTensor split as :func:`forward_hidden`'s hidden states are."""
-    h, _, layout = _forward(params, batch, cfg, attn_impl, mesh)
-    logits = _unembed(params, h, cfg)
+    DTensor split as :func:`forward_hidden`'s hidden states are, and under
+    ``megatron`` its vocabulary over ``model`` (each rank computes its
+    columns, as the JAX package constrains them)."""
+    h, _, layout, top = _forward(params, batch, cfg, attn_impl, mesh)
+    tp = None if mesh is None else tensor_parallel.model_group(mesh)
+    logits = _unembed(top, h, cfg, tp)
     if layout is None:
         return logits
     return layout.dtensor(logits, tuple(batch["tokens"].shape)
-                          + logits.shape[2:])
+                          + (cfg.padded_vocab,),
+                          vocab_dims=tp.dims if _vocab_split(top, cfg, tp)
+                          else ())
 
 
 # ---------------------------------------------------------------------------

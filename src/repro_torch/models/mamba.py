@@ -9,6 +9,15 @@ stable associative scan, and a cumulative product of the decays in log
 space loses the state once the decay underflows across a chunk.  The loop
 is the exact recurrence (the one ``mamba_decode`` takes a step of), at one
 fused multiply-add launch per token.
+
+On a mesh under ``megatron`` the inner channels are split over ``model``:
+``conv_w``, ``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and
+``out_proj`` per channel, ``x_proj`` on its rows (a contraction over the
+channels: partial sums, summed over ``model``), and ``in_proj`` on its
+fused (x, z) columns, which the contiguous slice cuts across the halves;
+its product is gathered over ``model`` and each rank takes both halves of
+its own channels (``tensor_parallel.own_channels``).  Each rank scans its
+channels.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES, ParamSpec, PyTree
+from repro_torch.parallel import tensor_parallel
 
 
 def mamba_specs(cfg: ModelConfig) -> PyTree:
@@ -63,11 +73,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b
 
 
-def _ssm_inputs(params: PyTree, x_conv: torch.Tensor, cfg: ModelConfig):
+def _ssm_inputs(params: PyTree, x_conv: torch.Tensor, cfg: ModelConfig,
+                tp=None):
     """x_conv (B,S,di) -> decay a (B,S,di,N), input bx (B,S,di,N) and C
-    (B,S,N), float32."""
+    (B,S,N), float32.  With ``tp``, x_conv holds this rank's channels and
+    ``x_proj`` its rows: the projection is summed over ``model``."""
     n, r = cfg.ssm_state_dim, cfg.dt_rank
     proj = torch.matmul(x_conv, params["x_proj"])  # (B,S,r+2N)
+    if tp is not None:
+        proj = tp.copy(tp.reduce(proj))
     dt_in, b_in, c_in = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus(torch.matmul(dt_in, params["dt_proj"])
                     + params["dt_bias"]).float()
@@ -83,16 +97,25 @@ def _gated_out(params: PyTree, y: torch.Tensor, x_conv: torch.Tensor,
     return torch.matmul(y.to(dtype) * F.silu(z), params["out_proj"])
 
 
-def mamba_fwd(params: PyTree, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """x (B,S,D) -> (B,S,D).  Chunked selective scan."""
+def mamba_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D).  Chunked selective scan.  With ``tp`` (a
+    ``parallel.tensor_parallel.ModelGroup``) and the inner channels split
+    over it, params hold this rank's slices (see the module's note)."""
     b, s, _ = x.shape
-    xu, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    di = params["conv_b"].shape[0]
+    if tp is not None and not tp.split(di, cfg.d_inner):
+        tp = None
+    if tp is None:
+        xu, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    else:
+        xu, z = tensor_parallel.own_channels(
+            torch.matmul(tp.copy(x), params["in_proj"]), tp)
     x_conv = F.silu(_causal_conv(xu, params["conv_w"], params["conv_b"]))
-    a, bx, c = _ssm_inputs(params, x_conv, cfg)
+    a, bx, c = _ssm_inputs(params, x_conv, cfg, tp)
     chunk = min(cfg.ssm_chunk, s)
     assert s % chunk == 0, (s, chunk)
-    h = x.new_zeros((b, cfg.d_inner, cfg.ssm_state_dim), dtype=torch.float32)
+    h = x.new_zeros((b, di, cfg.ssm_state_dim), dtype=torch.float32)
     ys = []
     for c0 in range(0, s, chunk):
         hs = []
@@ -101,7 +124,8 @@ def mamba_fwd(params: PyTree, x: torch.Tensor,
             hs.append(h)
         ys.append(torch.einsum("btdn,btn->btd", torch.stack(hs, 1),
                                c[:, c0:c0 + chunk]))
-    return _gated_out(params, torch.cat(ys, 1), x_conv, z, x.dtype)
+    out = _gated_out(params, torch.cat(ys, 1), x_conv, z, x.dtype)
+    return out if tp is None else tp.reduce(out)
 
 
 def mamba_decode(params: PyTree, x: torch.Tensor, conv_state: torch.Tensor,

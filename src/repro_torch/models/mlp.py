@@ -1,4 +1,6 @@
-"""Dense SwiGLU MLP (llama-family)."""
+"""Dense SwiGLU MLP (llama-family).  On a mesh under ``megatron``,
+``wi_gate``/``wi_up`` split on their columns and ``wo`` on its rows over
+``model``: each rank's partial product is summed over the group."""
 from __future__ import annotations
 
 import torch
@@ -18,7 +20,15 @@ def mlp_specs(cfg: ModelConfig) -> PyTree:
     }
 
 
-def mlp_fwd(params: PyTree, x: torch.Tensor) -> torch.Tensor:
+def mlp_fwd(params: PyTree, x: torch.Tensor, tp=None,
+            d_ff: int = 0) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D).  With ``tp`` (a
+    ``parallel.tensor_parallel.ModelGroup``) and the hidden width
+    ``d_ff`` split over it, params hold this rank's slices."""
+    split = tp is not None and tp.split(params["wi_gate"].shape[-1], d_ff)
+    if split:
+        x = tp.copy(x)
     gate = torch.matmul(x, params["wi_gate"])
     up = torch.matmul(x, params["wi_up"])
-    return torch.matmul(F.silu(gate) * up, params["wo"])
+    out = torch.matmul(F.silu(gate) * up, params["wo"])
+    return tp.reduce(out) if split else out

@@ -12,6 +12,14 @@ strictly sequential).
 * sLSTM: its gates read h_{t-1} through block-diagonal recurrent weights,
   so it has no parallel form; the port loops over time steps in Python, a
   few small launches per token, with the m-stabilised update.
+
+On a mesh under ``megatron`` (``tp``), mLSTM's inner channels are split
+over ``model``: ``up`` on its fused (u, z) columns (gathered, and both
+halves of a rank's channels taken, as Mamba's ``in_proj``), ``wq``,
+``wk``, ``wv`` and ``w_gates`` on their rows (partial sums, summed over
+``model``), ``down`` on its rows; the cell runs on every rank on the
+whole heads.  sLSTM's recurrence is replicated; its ``up``/``down`` split
+on the projection width where it divides, ``up`` as a fused pair.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES, ParamSpec, PyTree, softcap
+from repro_torch.parallel import tensor_parallel
 
 _IGATE_CAP = 10.0
 
@@ -51,15 +60,28 @@ def mlstm_specs(cfg: ModelConfig) -> PyTree:
     }
 
 
-def _mlstm_qkv_gates(params: PyTree, x: torch.Tensor, cfg: ModelConfig):
+def _mlstm_qkv_gates(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
+                     tp=None):
+    """q, k, v (B,S,H,hd), the log gates (B,S,H) float32 and z; with
+    ``tp`` z is this rank's channels and the rest whole (summed over
+    ``model``)."""
     di, h = cfg.mlstm_inner, cfg.n_heads
     hd = di // h
-    u, z = torch.matmul(x, params["up"]).chunk(2, dim=-1)
+    if tp is None:
+        u, z = torch.matmul(x, params["up"]).chunk(2, dim=-1)
+    else:
+        u, z = tensor_parallel.own_channels(
+            torch.matmul(tp.copy(x), params["up"]), tp)
     b, s = u.shape[:2]
-    q = torch.matmul(u, params["wq"]).reshape(b, s, h, hd)
-    k = torch.matmul(u, params["wk"]).reshape(b, s, h, hd) / math.sqrt(hd)
-    v = torch.matmul(u, params["wv"]).reshape(b, s, h, hd)
-    gates = torch.matmul(u, params["w_gates"]).float() + params["b_gates"]
+
+    def rows(w):
+        y = torch.matmul(u, params[w])
+        return y if tp is None else tp.reduce(y)
+
+    q = rows("wq").reshape(b, s, h, hd)
+    k = rows("wk").reshape(b, s, h, hd) / math.sqrt(hd)
+    v = rows("wv").reshape(b, s, h, hd)
+    gates = rows("w_gates").float() + params["b_gates"]
     log_i = softcap(gates[..., :h], _IGATE_CAP)          # (B,S,H)
     log_f = F.logsigmoid(gates[..., h:])                 # (B,S,H) <= 0
     return q, k, v, log_i, log_f, z
@@ -98,14 +120,18 @@ def _mlstm_chunk(qi, ki, vi, li, lf, c_state, n_state, out_dtype):
     return h_out.to(out_dtype), c_new, n_new
 
 
-def mlstm_fwd(params: PyTree, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """x (B,S,D) -> (B,S,D), chunkwise-parallel mLSTM."""
+def mlstm_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
+    """x (B,S,D) -> (B,S,D), chunkwise-parallel mLSTM.  With ``tp`` (a
+    ``parallel.tensor_parallel.ModelGroup``) and the inner channels split
+    over it, params hold this rank's slices (see the module's note)."""
     b, s, _ = x.shape
     h_heads = cfg.n_heads
     di = cfg.mlstm_inner
     hd = di // h_heads
-    q, k, v, log_i, log_f, z = _mlstm_qkv_gates(params, x, cfg)
+    if tp is not None and not tp.split(params["down"].shape[0], di):
+        tp = None
+    q, k, v, log_i, log_f, z = _mlstm_qkv_gates(params, x, cfg, tp)
     chunk = min(cfg.ssm_chunk, s)
     assert s % chunk == 0, (s, chunk)
     c_state = x.new_zeros((b, h_heads, hd, hd), dtype=torch.float32)
@@ -117,8 +143,12 @@ def mlstm_fwd(params: PyTree, x: torch.Tensor,
             q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], log_f[:, sl],
             c_state, n_state, x.dtype)
         hs.append(h_c)
-    out = torch.cat(hs, dim=1).reshape(b, s, di) * F.silu(z)
-    return torch.matmul(out, params["down"])
+    out = torch.cat(hs, dim=1).reshape(b, s, di)
+    if tp is None:
+        return torch.matmul(out * F.silu(z), params["down"])
+    lo, hi = tp.span(z.shape[-1])
+    out = tp.copy(out)[..., lo:hi] * F.silu(z)
+    return tp.reduce(torch.matmul(out, params["down"]))
 
 
 def mlstm_decode(params: PyTree, x: torch.Tensor, c_state: torch.Tensor,
@@ -186,15 +216,29 @@ def _slstm_step(params: PyTree, cfg: ModelConfig, carry, x_t):
     return (c_new, n_new, m_new, h_new), h_new
 
 
-def _slstm_out(params: PyTree, h: torch.Tensor) -> torch.Tensor:
-    u, g = torch.matmul(h, params["up"]).chunk(2, dim=-1)
-    return torch.matmul(u * F.gelu(g, approximate="tanh"), params["down"])
+def _slstm_out(params: PyTree, h: torch.Tensor, tp=None,
+               width: int = 0) -> torch.Tensor:
+    """The up/down projection of h; with ``tp`` and its ``width`` (the
+    projection's) split over it, params hold this rank's slices: a
+    split ``up`` (its fused (u, g) pair) and ``down`` give partial sums;
+    a split ``up`` beside an unsplit ``down`` is read whole."""
+    up, down = params["up"], params["down"]
+    if tp is not None and tp.split(down.shape[0], width):
+        u, g = tensor_parallel.own_channels(torch.matmul(tp.copy(h), up), tp)
+        return tp.reduce(torch.matmul(u * F.gelu(g, approximate="tanh"),
+                                      down))
+    if tp is not None and tp.split(up.shape[-1], 2 * width):
+        up = tp.full(up, -1)
+    u, g = torch.matmul(h, up).chunk(2, dim=-1)
+    return torch.matmul(u * F.gelu(g, approximate="tanh"), down)
 
 
-def slstm_fwd(params: PyTree, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+def slstm_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
+              tp=None) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D): a loop over time steps, then the up/down
-    projection (GELU, tanh form: ``jax.nn.gelu``'s default)."""
+    projection (GELU, tanh form: ``jax.nn.gelu``'s default).  With ``tp``
+    (a ``parallel.tensor_parallel.ModelGroup``) params hold this rank's
+    slices (see the module's note)."""
     b, s, d = x.shape
     x_in = torch.matmul(x, params["w_in"]).float()  # (B,S,4D)
     carry = tuple(x.new_zeros((b, d), dtype=torch.float32) for _ in range(4))
@@ -202,7 +246,8 @@ def slstm_fwd(params: PyTree, x: torch.Tensor,
     for t in range(s):
         carry, h_t = _slstm_step(params, cfg, carry, x_in[:, t])
         hs.append(h_t)
-    return _slstm_out(params, torch.stack(hs, dim=1).to(x.dtype))
+    return _slstm_out(params, torch.stack(hs, dim=1).to(x.dtype), tp,
+                      int(d * cfg.xlstm_slstm_proj))
 
 
 def slstm_decode(params: PyTree, x: torch.Tensor, state, cfg: ModelConfig):

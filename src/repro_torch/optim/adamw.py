@@ -24,7 +24,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models.common import (DTYPES, PyTree, spec_map, tree_leaves,
-                                       tree_map)
+                                       tree_unflatten_like)
+from repro_torch.parallel import collectives
 
 #: elements of a leaf updated at once (float32 temporaries of 64 MB each)
 CHUNK = 1 << 24
@@ -65,15 +66,22 @@ def opt_state_specs(param_specs: PyTree, opt: OptimizerConfig) -> Dict:
     return {"mu": moment, "nu": moment, "step": None}
 
 
-def init_opt_state(params: PyTree, opt: OptimizerConfig) -> Dict:
+def init_opt_state(params: PyTree, opt: OptimizerConfig,
+                   shapes=None) -> Dict:
     """Zero moments of ``params``' layout in ``state_dtype`` on each leaf's
-    device, and the step count (an int32 scalar on the CPU)."""
+    device, and the step count (an int32 scalar on the CPU).  ``shapes``
+    (in ``tree_leaves`` order) sets the moments' shapes where they are
+    not the leaves' (their own slices on a mesh)."""
     dt = DTYPES[opt.state_dtype]
+    leaves = tree_leaves(params)
+    shapes = shapes or [p.shape for p in leaves]
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros():
+        return tree_unflatten_like(params, [
+            torch.zeros(s, dtype=dt, device=p.device)
+            for p, s in zip(leaves, shapes)])
 
-    return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
+    return {"mu": zeros(), "nu": zeros(),
             "step": torch.zeros((), dtype=torch.int32)}
 
 
@@ -83,27 +91,44 @@ def _chunks(t: torch.Tensor):
 
 
 @torch.no_grad()
-def global_norm(tree: PyTree) -> torch.Tensor:
+def global_norm(tree: PyTree, mesh=None, split=None) -> torch.Tensor:
     """sqrt of the sum of every element's square, in float32 (a scalar on
-    the leaves' device)."""
-    total = None
-    for x in tree_leaves(tree):
+    the leaves' device).  On ``mesh`` the leaves are this rank's slices and
+    ``split`` names, for each leaf in ``tree_leaves`` order, the mesh dims
+    it is split over: each leaf's squares are summed over those dims, so
+    a slice counts once however many ranks hold it."""
+    sums = {}
+    for i, x in enumerate(tree_leaves(tree)):
+        key = () if mesh is None else tuple(split[i])
         for c in _chunks(x):
             s = torch.sum(torch.square(c.float()))
-            total = s if total is None else total + s
+            sums[key] = s if key not in sums else sums[key] + s
+    total = None
+    for key in sorted(sums):
+        s = sums[key]
+        if key:
+            s = collectives.all_reduce(s, mesh, key)
+        total = s if total is None else total + s
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(params: PyTree, grads: PyTree, state: Dict,
-                 opt: OptimizerConfig) -> Tuple[PyTree, Dict, Dict]:
+                 opt: OptimizerConfig, mesh=None, split=None,
+                 zero=None) -> Tuple[PyTree, Dict, Dict]:
     """One AdamW step: ``params`` and ``state`` are updated in place and
     returned with ``{"lr", "grad_norm"}``.  ``grads`` has ``params``'
-    layout, or is the list of their leaves in :func:`tree_leaves` order."""
+    layout, or is the list of their leaves in :func:`tree_leaves` order.
+    On ``mesh`` every leaf (parameter, gradient and moments alike) is this
+    rank's slice, split over the mesh dims ``split`` names for it (see
+    :func:`global_norm`): the update is elementwise but for the clipping
+    norm, which spans the mesh.  ``zero`` (in leaf order; None for most)
+    holds a ``parallel.tensor_parallel.MomentSlice`` for each leaf whose
+    moments are sliced otherwise: its step runs on the moments' slice."""
     state["step"] += 1
     step = state["step"].to(torch.float32)
     lr = schedule(opt, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, split)
     scale = (torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
              if opt.clip_norm else torch.ones((), device=gnorm.device))
     f32 = torch.float32
@@ -114,9 +139,15 @@ def adamw_update(params: PyTree, grads: PyTree, state: Dict,
     if len({len(f) for f in flat}) != 1:
         raise ValueError(f"params, grads and moments hold {[len(f) for f in flat]} "
                          "leaves")
-    for p, g, mu, nu in zip(*flat):
+    for i, (p, g, mu, nu) in enumerate(zip(*flat)):
         if g.shape != p.shape:
             raise ValueError(f"gradient {tuple(g.shape)} for a parameter "
+                             f"{tuple(p.shape)}")
+        cut = None if zero is None else zero[i]
+        if cut is not None:
+            whole, (p, g) = p, cut.take(p, g)
+        if mu.shape != p.shape:
+            raise ValueError(f"moments {tuple(mu.shape)} for a parameter "
                              f"{tuple(p.shape)}")
         for pc, gc, mc, nc in zip(_chunks(p), _chunks(g.contiguous()),
                                   _chunks(mu), _chunks(nu)):
@@ -134,6 +165,8 @@ def adamw_update(params: PyTree, grads: PyTree, state: Dict,
             for dst, src in ((pc, pf), (mc, m), (nc, v)):
                 if src is not dst:
                     dst.copy_(src)
+        if cut is not None:
+            cut.put(whole, p)
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
 

@@ -1,19 +1,21 @@
 """The collectives of the mesh layer, over the dims of a
 ``torch.distributed`` ``DeviceMesh``.
 
-Every collective of ``repro_torch.parallel``, ``optim.compression`` and the
-sequence-parallel attention goes through this module, so the one rule
-about backends lives here: a ``gloo`` group runs ``all_reduce``,
-``broadcast`` and ``all_gather`` on CUDA tensors itself, but not
-``send``/``recv``, whose CUDA tensors are staged through host memory
-(:func:`_staged`).  The choice is made from the group's backend before
-the call, never after a failure.  NCCL takes CUDA tensors for all of
-them; it runs one rank per GPU, so several ranks sharing one card use
-gloo.
+Every collective of ``repro_torch.parallel``, ``optim.compression``, the
+sequence-parallel attention and the compute on sharded weights goes
+through this module, so the one rule about backends lives here: a
+``gloo`` group runs ``all_reduce``, ``broadcast``, ``all_gather`` and
+``reduce_scatter`` on CUDA tensors itself (``chip_smoke.gloo_probe``
+checks the last on the card), but not ``send``/``recv``, whose CUDA
+tensors are staged through host memory (:func:`_staged`).  The choice is
+made from the group's backend before the call, never after a failure.
+NCCL takes CUDA tensors for all of them; it runs one rank per GPU, so
+several ranks sharing one card use gloo.
 
 A collective over several mesh dims runs over each dim's own group in
-turn: a sum or max of sums or maxes, and a gather of gathers (the last dim
-first, so the result is row-major over the dims, the first outermost).
+turn: a sum or max of sums or maxes, a gather of gathers (the last dim
+first, so the result is row-major over the dims, the first outermost) and
+a scatter of scatters (the first dim first, its inverse).
 """
 from __future__ import annotations
 
@@ -77,6 +79,25 @@ def all_gather_cat(t: torch.Tensor, mesh, dims: Sequence[str],
         dist.all_gather(parts, src, group=group)
         t = torch.cat(parts, dim=dim)
     return t
+
+
+def reduce_scatter(t: torch.Tensor, mesh, dims: Sequence[str],
+                   dim: int) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``dims``, cut along ``dim`` into
+    as many chunks as ranks; returns this rank's chunk (the one
+    :func:`all_gather_cat` would put at its place), a new tensor."""
+    for d in dims:
+        group = mesh.get_group(d)
+        n = dist.get_world_size(group)
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"into {n}")
+        parts = [c.contiguous() for c in t.chunk(n, dim)]
+        t = torch.empty_like(parts[0])
+        dist.reduce_scatter(t, parts, group=group)
+    return t.contiguous()
 
 
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:

@@ -302,27 +302,35 @@ class NamedSharding:
                 out[i] = Shard(d)
         return tuple(out)
 
-    def local_slice(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's part of the full tensor ``t`` (a view): along each
-        split dim, the chunk at its row-major index over the dim's mesh
-        dims."""
+    def local_ranges(self, shape, coord=None) -> Tuple[Tuple[int, int], ...]:
+        """This rank's (or the rank at mesh coordinates ``coord``'s)
+        [start, stop) along each dim of a full tensor of ``shape``: along
+        each split dim, the chunk at its row-major index over the dim's
+        mesh dims; the whole dim elsewhere."""
         names = tuple(self.mesh.mesh_dim_names)
-        coord = self.mesh.get_coordinate()
-        out = t
-        for d, entry in enumerate(self.spec):
-            members = axis_members(entry)
-            if not members:
-                continue
+        coord = self.mesh.get_coordinate() if coord is None else coord
+        out = []
+        for d, size_d in enumerate(shape):
+            members = axis_members(self.spec[d]) if d < len(self.spec) else ()
             n, idx = 1, 0
             for a in members:
                 size = self.mesh.size(names.index(a))
                 idx = idx * size + coord[names.index(a)]
                 n *= size
-            if t.shape[d] % n:
-                raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
+            if size_d % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
                                  f"split into {n}")
-            step = t.shape[d] // n
-            out = out.narrow(d, idx * step, step)
+            step = size_d // n
+            out.append((idx * step, (idx + 1) * step))
+        return tuple(out)
+
+    def local_slice(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the full tensor ``t`` (a view), as
+        :meth:`local_ranges` gives it."""
+        out = t
+        for d, (lo, hi) in enumerate(self.local_ranges(t.shape)):
+            if hi - lo != t.shape[d]:
+                out = out.narrow(d, lo, hi - lo)
         return out
 
 
@@ -351,6 +359,30 @@ def shard_tensor(t: torch.Tensor, sharding: NamedSharding):
                               run_check=False, shape=t.shape,
                               stride=torch.empty(t.shape,
                                                  device="meta").stride())
+
+
+def local_tree(tree: PyTree, pspecs: PyTree, mesh) -> PyTree:
+    """Each leaf of ``tree`` (full tensors) cut to this rank's slice by its
+    :class:`PartitionSpec` in ``pspecs``: a contiguous copy of its own on
+    the mesh's device type, the tree the compute on sharded weights takes
+    (``lm.lm_logits(..., mesh=)``, ``train.steps.make_train_step(...,
+    mesh=)``)."""
+    leaves = [t for _, t in tree_leaves_with_names(tree)]
+    specs = [p for _, p in tree_leaves_with_names(pspecs)]
+    if len(leaves) != len(specs):
+        raise ValueError(f"{len(leaves)} leaves against {len(specs)} specs")
+    return tree_unflatten_like(tree, [
+        NamedSharding(mesh, p).local_slice(t).to(
+            mesh.device_type).contiguous().clone()
+        for t, p in zip(leaves, specs)])
+
+
+def to_local(tree: PyTree) -> PyTree:
+    """A tree whose DTensor leaves (``shard_tree``'s, or a sharded
+    restore's) are their local tensors; other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                    tree)
 
 
 def shard_tree(tree: PyTree, pspecs: PyTree, mesh) -> PyTree:
@@ -405,20 +437,18 @@ class BatchLayout:
         the batch, or that is already the rank's batch)."""
         return NamedSharding(self.mesh, self.spec(batch)).local_slice(t)
 
-    def gather(self, t: torch.Tensor, batch: bool = True) -> torch.Tensor:
-        """The inverse of :meth:`local`: every rank's slice gathered back
-        (a collective over the split dims; every rank calls it)."""
-        if self.seq_dims:
-            t = collectives.all_gather_cat(t, self.mesh, self.seq_dims, 1)
-        if batch and self.batch_dims:
-            t = collectives.all_gather_cat(t, self.mesh, self.batch_dims,
-                                           0)
-        return t
-
-    def dtensor(self, local: torch.Tensor, full_shape):
-        """This rank's slice ``local`` as a DTensor of ``full_shape``."""
+    def dtensor(self, local: torch.Tensor, full_shape,
+                vocab_dims: Tuple[str, ...] = ()):
+        """This rank's slice ``local`` as a DTensor of ``full_shape``; its
+        last dim split over ``vocab_dims`` too (the logits under
+        ``megatron``)."""
         from torch.distributed.tensor import DTensor
+        spec = self.spec()
+        if vocab_dims:
+            spec = P(*spec, *([None] * (len(full_shape) - 3)),
+                     vocab_dims)
         return DTensor.from_local(
-            local, self.mesh, self.placements(), run_check=False,
+            local, self.mesh, NamedSharding(self.mesh, spec).placements,
+            run_check=False,
             shape=torch.Size(full_shape),
             stride=torch.empty(full_shape, device="meta").stride())

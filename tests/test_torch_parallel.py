@@ -448,15 +448,6 @@ for name, strategy, shape, b, s in lm_cases:
     out["lm/" + name] = d.full_tensor().numpy()
     out["lm/" + name + "/placements"] = np.array(
         [repr(p) for p in d.placements])
-meg = make_mesh((1, 2), ("data", "model"), "cpu")
-if meg.get_coordinate() is not None:
-    try:
-        lm.lm_logits(params, {{"tokens": torch.zeros(2, 64).long()}},
-                     cfg, attn_impl="plain", mesh=meg)
-        out["megatron_raised"] = np.array(False)
-    except NotImplementedError as exc:
-        out["megatron_raised"] = np.array("ROADMAP 6e" in str(exc))
-
 em = make_elastic_mesh(device_type="cpu")
 em4 = make_elastic_mesh(n_devices=4, device_type="cpu")
 out["elastic"] = np.array([em.size(0), em.size(1), em4.size(0), em4.size(1),
@@ -648,11 +639,6 @@ def test_lm_forward_on_a_mesh_matches_jax(runs, case):
         np.testing.assert_allclose(out["lm/" + name], want, rtol=1e-4,
                                    atol=1e-4)
         assert list(out["lm/" + name + "/placements"]) == placements
-
-
-def test_megatron_on_a_model_dim_raises(runs):
-    for out in runs["ranks"][:2]:
-        assert bool(out["megatron_raised"])
 
 
 def test_make_elastic_mesh_on_gloo(runs):
