@@ -145,6 +145,27 @@
    the one-process forward's) and megatron_train (one step of
    h2o-danube-3-4b with fsdp on a (2, 2) mesh, batch 2 x 2,048, against
    the one-process step's loss and gradients).
+15. Decode and prefill over sharded caches (``lm.decode_step``,
+   ``lm.prefill`` and ``make_serve_step`` with ``mesh=``): 4 spawned gloo
+   ranks sharing the card, each holding only its serving slices of the
+   weights and its ``cache_pspecs`` slices of every cache, the
+   one-process references (bf16, the witness with every weight one ulp
+   off, float32 at reduced depth and its witnesses) on rank 0 first: sharded_decode
+   (phi3-medium-14b under megatron on (1, 4), batch 4, 8,192 seeded
+   slots, 2,048 a rank, 16 steps of a seeded token stream),
+   sharded_decode_xlstm (xlstm-350m, batch 4, 16 steps after a 64-token
+   sharded prefill, its states split by channel), sharded_decode_long
+   (h2o-danube-3-4b, batch 1, on (2, 2): 32,768 seeded slots over
+   ("data", "model"), 8,192 a rank, most of them outside the window) and
+   sharded_decode_long_ring (the same with ``decode_ring`` 256, the rings
+   split on head_dim), sharded_seamless (seamless-m4t-large-v2 under
+   megatron on (1, 4), batch 4: a sharded prefill of 4,096 frames, the
+   encoder through the kernel's tc path on each rank's 4 heads, and 16
+   tokens into 4,096 slots, then 16 steps).  Each held by its logits and
+   every rank's cache slices against one process: bf16 by the witness
+   rule and the phase's absolute bounds, float32 within SD_F32_TOL (or
+   twice the smaller of two float32 witnesses); ms a step, peak memory
+   and weight and cache bytes by rank.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -155,6 +176,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -3765,16 +3787,11 @@ def _tp_megatron_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
 
     params = init_local(cfg, mesh, 1, dev)
     local_bytes = _tp_bytes(params)
-    got = _tp_vocab_gather(step(params, batch).to_local(), mesh)
-    if rank == 0:
-        out["bf16_vs_one_process"] = agree(got, ref)
-    del got, ref
     _free(dev)
-    dist.barrier()
     _reset_peak(dev)
     reset_launches()
     dist.barrier()
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()         # one run, timed and held
     logits = step(params, batch).to_local()
     _sync(dev)
     seconds = time.perf_counter() - t0
@@ -3782,7 +3799,10 @@ def _tp_megatron_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
     peak = _peak(dev)
     finite = bool(torch.isfinite(logits).all())
     shape = list(logits.shape)
-    del logits
+    got = _tp_vocab_gather(logits, mesh)
+    if rank == 0:
+        out["bf16_vs_one_process"] = agree(got, ref)
+    del logits, got, ref
     _free(dev)
     stats = torch.tensor([seconds, peak, float(finite), local_bytes,
                           launches, paths["tc"]], device=dev,
@@ -4264,6 +4284,608 @@ def run_tensor_parallel(opts: dict) -> dict:
     return out
 
 
+SD_RANKS = 4
+SD_STEPS = 16                  # decode steps of a seeded token stream
+SD_F32_TOL = 1e-4              # float32 logits and caches at SD_F32_DEPTH
+SD_F32_DEPTH = 8               # layers of the float32 runs (phi3, danube)
+SD_SEAMLESS_F32_DEPTH = 6      # encoder and decoder layers, float32 run
+@dataclasses.dataclass(frozen=True)
+class SdPhase:
+    """One decode-over-sharded-caches phase: its config, mesh, batch, cache
+    slots, first decode position, prompt tokens and encoder frames (a
+    prompt is prefilled on the mesh; without one the self-attention caches
+    are seeded), config overrides and the absolute bf16 bounds; ``smoke``
+    runs it at the config's smoke size in bf16 (a CPU dry run, held by the
+    witness rule alone)."""
+    name: str
+    arch: str
+    mesh: tuple
+    batch: int
+    slots: int
+    start: int
+    prompt: int = 0
+    frames: int = 0
+    over: tuple = ()
+    smoke: bool = False
+    #: bf16 logits against one process, beside the witness rule: the
+    #: largest mean |d| and the least top-1 agreement, at ~1.5x the
+    #: largest mean and below the least top-1 of the earlier card reads
+    bf16_mean: float = 0.0
+    bf16_top1: float = 1.0
+
+    def config(self, f32: bool = False):
+        """The phase's config under ``megatron``; with ``f32``, in float32
+        at SD_F32_DEPTH layers (seamless: SD_SEAMLESS_F32_DEPTH a stack)."""
+        from repro_torch.configs import get_config
+        cfg = get_config(self.arch)
+        if self.smoke:
+            cfg = dataclasses.replace(cfg.smoke(), dtype="bfloat16",
+                                      param_dtype="bfloat16")
+        cfg = dataclasses.replace(cfg, shard_strategy="megatron",
+                                  **dict(self.over))
+        if not f32:
+            return cfg
+        period = len(cfg.pattern)
+        depth = SD_SEAMLESS_F32_DEPTH if cfg.encoder_decoder else SD_F32_DEPTH
+        return dataclasses.replace(
+            cfg, dtype="float32", param_dtype="float32",
+            n_layers=min(cfg.n_layers, max(period, depth // period * period)),
+            n_encoder_layers=min(cfg.n_encoder_layers, depth))
+
+    def at_smoke_size(self) -> "SdPhase":
+        """The phase at smoke sizes: 64 slots, 16 prompt tokens, 32 frames,
+        a ring of 8."""
+        slots, prompt = (64 if self.slots > 128 else self.slots), min(
+            self.prompt, 16)
+        start = prompt if prompt else (
+            min(self.start, slots - SD_STEPS) if self.start < self.slots
+            else slots)
+        return dataclasses.replace(
+            self, slots=slots, start=start, prompt=prompt,
+            frames=min(self.frames, 32),
+            over=tuple((k, min(v, 8)) for k, v in self.over), smoke=True)
+
+
+SD_PHASES = (
+    SdPhase("sharded_decode", "phi3-medium-14b", (1, 4), 4, 8192,
+            8192 - SD_STEPS, bf16_mean=0.08, bf16_top1=0.75),
+    SdPhase("sharded_decode_xlstm", "xlstm-350m", (1, 4), 4, 128, 64,
+            prompt=64, bf16_mean=0.45, bf16_top1=0.3),
+    SdPhase("sharded_decode_long", "h2o-danube-3-4b", (2, 2), 1, 32768,
+            32768 - SD_STEPS, bf16_mean=0.06, bf16_top1=0.875),
+    SdPhase("sharded_decode_long_ring", "h2o-danube-3-4b", (2, 2), 1, 32768,
+            32768, over=(("decode_ring", 256),), bf16_mean=0.06,
+            bf16_top1=0.875),
+    SdPhase("sharded_seamless", "seamless-m4t-large-v2", (1, 4), 4, 4096, 16,
+            prompt=16, frames=4096, bf16_mean=0.02, bf16_top1=0.875),
+)
+#: the seeds of the float32 witnesses (every weight one ulp off), read on
+#: two seeds: the float32 bound is twice the smaller where it exceeds
+#: SD_F32_TOL
+SD_F32_WITNESS_SEEDS = (4, 5)
+#: the recurrent states, held relative to the leaf's largest magnitude
+SD_RECURRENT = ("conv", "h", "c", "n", "m")
+
+
+def nudge_ulp(params, seed: int) -> None:
+    """Moves every nonzero element of every leaf of ``params`` by one ulp of
+    its dtype, up or down at random (seeded), in place: the witness of
+    rounding alone for the bf16 decode phases."""
+    from repro_torch.models.common import tree_leaves
+    g = torch.Generator(device=tree_leaves(params)[0].device).manual_seed(
+        seed)
+    for t in tree_leaves(params):
+        bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        step = torch.randint(0, 2, t.shape, generator=g, device=t.device,
+                             dtype=bits.dtype) * 2 - 1
+        bits.add_(torch.where(t == 0, 0, step).to(bits.dtype))
+
+
+def _sd_cut(params, cfg):
+    """The first layers of ``params`` that the cut ``cfg`` keeps (stacked
+    leaves over its n_repeats; the encoder's over n_encoder_layers), in
+    float32."""
+    from repro_torch.models.common import tree_map
+    out = dict(params, blocks=tree_map(lambda a: a[:cfg.n_repeats],
+                                       params["blocks"]))
+    if cfg.encoder_decoder:
+        enc = params["encoder"]
+        out["encoder"] = dict(enc, blocks=tree_map(
+            lambda a: a[:cfg.n_encoder_layers], enc["blocks"]))
+    return tree_map(lambda a: a.float().contiguous(), out)
+
+
+def _sd_seed_caches(cfg, ph: SdPhase, dev, mesh=None):
+    """The decode caches of phase ``ph`` (``lm.init_cache``, whole, or
+    this rank's slices of them with ``mesh``): every attention leaf "k"
+    and "v" of a phase without a prompt seeded (normal draws, layer by
+    layer in one order, each rank keeping its slice)."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    b = ph.batch
+    caches = lm.init_cache(cfg, b, ph.slots, device=dev, mesh=mesh)
+    if ph.prompt:
+        return caches
+    specs = lm.cache_specs(cfg, b, ph.slots)
+    shards = (None if mesh is None
+              else shd.cache_shardings(specs, cfg, mesh, b))
+    g = torch.Generator(device=dev).manual_seed(7)
+    for i, (layer, spec) in enumerate(zip(caches, specs)):
+        for leaf in ("k", "v"):
+            if leaf not in layer:
+                continue
+            shape, dt = spec[leaf]
+            t = layer[leaf] if mesh is None else layer[leaf].to_local()
+            ranges = [(0, n) for n in shape] if mesh is None else \
+                shards[i][leaf].local_ranges(shape)
+            for r in range(shape[0]):
+                part = torch.randn(shape[1:], generator=g, device=dev)
+                for d, (lo, hi) in enumerate(ranges[1:]):
+                    part = part.narrow(d, lo, hi - lo)
+                t[r].copy_(part.to(dt))
+    return caches
+
+
+def _sd_inputs(cfg, ph: SdPhase, dev) -> dict:
+    """The phase's seeded token stream (B, SD_STEPS), prompt and frames."""
+    from repro_torch.models.common import DTYPES
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {"stream": torch.randint(0, cfg.vocab_size, (ph.batch, SD_STEPS),
+                                   device=dev, generator=g)}
+    if ph.prompt:
+        out["tokens"] = torch.randint(0, cfg.vocab_size,
+                                      (ph.batch, ph.prompt), device=dev,
+                                      generator=g)
+    if ph.frames:
+        out["enc_embeds"] = seamless_frames(cfg, ph.batch, ph.frames, g,
+                                            dev).to(DTYPES[cfg.dtype])
+    return out
+
+
+def _sd_written(ph: SdPhase, cfg) -> list:
+    """The self-attention slots the phase writes (its prompt's and its
+    steps'); with ``decode_ring``, none (the ring takes them)."""
+    if cfg.decode_ring:
+        return []
+    pos = list(range(ph.prompt)) + [ph.start + t for t in range(SD_STEPS)]
+    return sorted({p % ph.slots for p in pos})
+
+
+def _sd_session(cfg, ph: SdPhase, params, dev, mesh=None) -> dict:
+    """Phase ``ph``'s decode: its caches (seeded, or a prefill of its
+    prompt, seamless's with its frames through the encoder), then SD_STEPS
+    steps of its token stream from its first position, through
+    ``make_serve_step(cfg, mesh=)``.  Returns the logits of every prompt
+    position and step (B, P + SD_STEPS, V) float32 (gathered over the
+    vocabulary on a mesh), the caches, ms a step, prefill seconds, peak
+    GiB and the flash_attention launches (by path) of the session."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_serve_step
+    slots, start, prompt = ph.slots, ph.start, ph.prompt
+    inp = _sd_inputs(cfg, ph, dev)
+    step = make_serve_step(cfg, mesh=mesh)
+
+    def whole(lg):
+        if mesh is None:
+            return lg.float()
+        lg = lg.to_local()
+        if lg.shape[-1] != cfg.padded_vocab:
+            lg = _tp_vocab_gather(lg, mesh)
+        return lg.float()
+
+    _free(dev)
+    _reset_peak(dev)
+    reset_launches()
+    if mesh is not None:
+        dist.barrier()
+    out = {"prefill_s": 0.0}
+    logits = []
+    if prompt:
+        batch = {k: inp[k] for k in ("tokens", "enc_embeds") if k in inp}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, caches = lm.prefill(params, batch, cfg, slots, mesh=mesh)
+        _sync(dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        logits.append(whole(lg))
+    else:
+        caches = _sd_seed_caches(cfg, ph, dev, mesh)
+    seeded = None
+    if mesh is not None and not prompt:
+        seeded = [{k: t.to_local().clone() for k, t in layer.items()
+                   if k in ("k", "v")} for layer in caches]
+    times = []
+    for t in range(SD_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        lg, caches = step(params, caches, inp["stream"][:, t:t + 1],
+                          start + t)
+        _sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        logits.append(whole(lg))
+    out.update(logits=torch.cat(logits, dim=1), caches=caches, seeded=seeded,
+               ms=times, peak_gib=_peak(dev),
+               launches=flash_attention.launches,
+               tc=flash_attention.launches_by_path["tc"])
+    return out
+
+
+def _sd_leaves(caches, mesh=None) -> dict:
+    """{"position/name": tensor} of a cache tree (local tensors)."""
+    return {f"{i}/{k}": (t if mesh is None else t.to_local())
+            for i, layer in enumerate(caches) for k, t in layer.items()}
+
+
+def _sd_reference(cfg, ph: SdPhase, dev, params, path: str = None) -> dict:
+    """The one-process session on the whole ``params`` (rank 0): its
+    logits, and (with ``path``) the caches to hold the ranks to written
+    there: the written self-attention slots, every other leaf whole (on
+    the host)."""
+    run = _sd_session(cfg, ph, params, dev)
+    ms = float(np.median(run["ms"][1:]))
+    if path is None:
+        logits = run["logits"]
+        del run
+        _free(dev)
+        return {"logits": logits, "ms": ms}
+    written = _sd_written(ph, cfg)
+    ref = {}
+    for key, t in _sd_leaves(run["caches"]).items():
+        if key.split("/")[1] in ("k", "v") and not ph.prompt:
+            t = t[:, :, written]
+        ref[key] = t.cpu()
+    torch.save(ref, path)
+    logits = run["logits"]
+    del run, ref
+    _free(dev)
+    return {"logits": logits, "ms": ms}
+
+
+def _sd_cache_agreement(ph: SdPhase, cfg, caches, seeded, ref: dict,
+                        mesh) -> dict:
+    """This rank's cache slices against ``ref`` (``_sd_reference``'s, cut
+    to the slices): by leaf group (attention written slots, other
+    attention leaves, recurrent states) the max and mean |d| (the
+    recurrent states' relative to the leaf's largest magnitude); and
+    whether every unwritten seeded slot kept its value bit for bit."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    prompt = ph.prompt
+    specs = lm.cache_specs(cfg, ph.batch, ph.slots, ph.frames)
+    shards = shd.cache_shardings(specs, cfg, mesh, ph.batch)
+    written = _sd_written(ph, cfg)
+    groups = {}
+    kept = True
+    for i, layer in enumerate(caches):
+        for leaf, t in layer.items():
+            local = t.to_local()
+            want = ref[f"{i}/{leaf}"].to(local.device)
+            ranges = shards[i][leaf].local_ranges(specs[i][leaf][0])
+            if leaf in ("k", "v") and not prompt:
+                lo, hi = ranges[2]
+                mine = [s for s in written if lo <= s < hi]
+                idx = [written.index(s) for s in mine]
+                rest = torch.ones(hi - lo, dtype=torch.bool,
+                                  device=local.device)
+                rest[[s - lo for s in mine]] = False
+                kept &= bool(torch.equal(local[:, :, rest],
+                                         seeded[i][leaf][:, :, rest]))
+                got, want = local[:, :, [s - lo for s in mine]], \
+                    want[:, :, idx]
+                ranges = ranges[:2] + ((0, got.shape[2]),) + ranges[3:]
+                group = "written"
+            else:
+                got = local
+                group = "recurrent" if leaf in SD_RECURRENT else "attention"
+            for d, (lo, hi) in enumerate(ranges):
+                if want.shape[d] != got.shape[d]:
+                    want = want.narrow(d, lo, hi - lo)
+            if got.numel() == 0:
+                continue
+            diff = (got.float() - want.float()).abs()
+            scale = (float(want.float().abs().max()) or 1.0) \
+                if group == "recurrent" else 1.0
+            g = groups.setdefault(group, {"max_abs": 0.0, "sum": 0.0,
+                                          "n": 0})
+            g["max_abs"] = max(g["max_abs"], float(diff.max()) / scale)
+            g["sum"] += float(diff.sum()) / scale
+            g["n"] += diff.numel()
+    return {"groups": {k: {"max_abs": v["max_abs"],
+                           "mean_abs": v["sum"] / v["n"]}
+                       for k, v in groups.items()}, "seeded_kept": kept}
+
+
+def _sd_phase(dev, ph: SdPhase, rank: int, world: int, out_dir: str) -> dict:
+    """One decode phase over sharded caches on its mesh of ``world`` gloo
+    ranks, each holding only its serving slices (``lm.serve_pspecs``) and
+    its slices of every cache: first, on rank 0, the float32 session at
+    reduced depth and its witnesses (the same with every weight one ulp
+    off, on each of SD_F32_WITNESS_SEEDS), the one-process bf16 session
+    and its witness (references freed before the ranks load); then the
+    ranks' bf16 session (timed, launches counted) and their float32 one.
+    Rank 0 holds the logits and times the parts of the phase; every rank
+    holds its cache slices against the one-process caches it wrote to
+    disk."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
+    name, shape, b, slots, frames = (ph.name, ph.mesh, ph.batch, ph.slots,
+                                     ph.frames)
+    mesh = make_mesh(shape, ("data", "model"), dev.type)
+    cfg, f32 = ph.config(), ph.config(f32=True)
+    v = cfg.vocab_size
+    refs = {k: os.path.join(out_dir, f"{name}-{k}.pt")
+            for k in ("bf16", "witness", "f32")}
+    out = {"model": cfg.name, "mesh": list(shape), "batch": b,
+           "slots": slots, "first_position": ph.start, "prompt": ph.prompt,
+           "frames": frames, "steps": SD_STEPS, "f32_layers": f32.n_layers}
+    ref = {}
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def agree(a, b):
+        return dict(zip(("max_abs", "mean_abs", "top1"),
+                        logits_agreement(a, b, v)))
+
+    def lap(part):
+        nonlocal t0
+        _sync(dev)
+        seconds[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    if rank == 0:          # one process, before any rank holds its shards
+        full = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(1),
+                             device=dev)
+        out["whole_bytes"] = _tp_bytes(full)
+        p32 = _sd_cut(full, f32)
+        ref["f32"] = _sd_reference(f32, ph, dev, p32, refs["f32"])
+        out["f32_witness"] = []
+        for seed in SD_F32_WITNESS_SEEDS:
+            nudged = tree_map(torch.clone, p32)
+            nudge_ulp(nudged, seed)
+            out["f32_witness"].append(agree(_sd_reference(
+                f32, ph, dev, nudged)["logits"], ref["f32"]["logits"]))
+            del nudged
+        out["f32_max_logit"] = float(ref["f32"]["logits"].abs().max())
+        del p32
+        _free(dev)
+        ref["bf16"] = _sd_reference(cfg, ph, dev, full, refs["bf16"])
+        out["one_process_ms"] = ref["bf16"]["ms"]
+        # a wrong answer's reading, for scale: the logits one position late
+        late = ref["bf16"]["logits"]
+        out["one_position_late"] = agree(late[:, 1:], late[:, :-1])
+        nudge_ulp(full, 3)
+        ref["witness"] = _sd_reference(cfg, ph, dev, full,
+                                       refs["witness"])
+        del full, late
+        _free(dev)
+    dist.barrier()
+    lap("references")
+    params = init_local(cfg, mesh, 1, dev, pspecs=lm.serve_pspecs(cfg, mesh))
+    local_bytes = _tp_bytes(params)
+    lap("load")
+    run = _sd_session(cfg, ph, params, dev, mesh)
+    lap("bf16")
+    cache_bytes = _tp_bytes(_sd_leaves(run["caches"], mesh))
+    cspecs = lm.cache_specs(cfg, b, slots, frames)
+    whole_cache = sum(math.prod(s) * dt.itemsize for layer in cspecs
+                      for s, dt in layer.values())
+    want_cache = sum(
+        math.prod(hi - lo for lo, hi in sh[k].local_ranges(spec[k][0]))
+        * spec[k][1].itemsize for spec, sh in zip(
+            cspecs, shd.cache_shardings(cspecs, cfg, mesh, b))
+        for k in spec)
+    cmp = {k: _sd_cache_agreement(ph, cfg, run["caches"], run["seeded"],
+                                  torch.load(refs[k], map_location="cpu",
+                                             mmap=True), mesh)
+           for k in ("bf16", "witness")}
+    if rank == 0:
+        out["witness"] = agree(ref["witness"]["logits"], ref["bf16"]["logits"])
+        out["bf16_vs_one_process"] = agree(run["logits"],
+                                           ref["bf16"]["logits"])
+    finite = bool(torch.isfinite(run["logits"]).all())
+    stats = torch.tensor([float(np.median(run["ms"][1:])), run["ms"][0],
+                          run["prefill_s"], run["peak_gib"], float(finite),
+                          local_bytes, cache_bytes, run["launches"],
+                          run["tc"]], device=dev, dtype=torch.float64)
+    del run
+    _free(dev)
+    p32 = _sd_cut(params, f32)
+    del params
+    _free(dev)
+    run32 = _sd_session(f32, ph, p32, dev, mesh)
+    cmp["f32"] = _sd_cache_agreement(ph, f32, run32["caches"],
+                                     run32["seeded"],
+                                     torch.load(refs["f32"],
+                                                map_location="cpu",
+                                                mmap=True), mesh)
+    if rank == 0:
+        out["f32_vs_one_process"] = agree(run32["logits"],
+                                          ref["f32"]["logits"])
+    del run32, p32
+    _free(dev)
+    lap("f32")
+    every = collectives.all_gather_cat(stats[None], mesh, tuple(
+        mesh.mesh_dim_names), 0).cpu()
+    caches_by_rank = [None] * world
+    dist.all_gather_object(caches_by_rank, cmp)
+    out.update(ms_by_rank=every[:, 0].tolist(),
+               first_ms_by_rank=every[:, 1].tolist(),
+               prefill_s_by_rank=every[:, 2].tolist(),
+               peak_gib_by_rank=every[:, 3].tolist(),
+               finite=bool(every[:, 4].all()),
+               bytes_by_rank=[int(x) for x in every[:, 5]],
+               cache_bytes_by_rank=[int(x) for x in every[:, 6]],
+               whole_cache_bytes=int(whole_cache),
+               expected_cache_bytes=int(want_cache),
+               launches_by_rank=[int(x) for x in every[:, 7]],
+               tc_by_rank=[int(x) for x in every[:, 8]],
+               caches_by_rank=caches_by_rank, seconds=seconds,
+               expected_bytes=int(sum(
+                   math.prod(hi - lo for lo, hi in ranges)
+                   * s.dtype.itemsize for s, ranges in _sd_ranges(cfg, mesh)))
+               )
+    out["tokens_s"] = b * 1e3 / max(out["ms_by_rank"])
+    dist.barrier()
+    return out
+
+
+def _sd_ranges(cfg, mesh):
+    """(ParamSpec, this rank's ranges) of every leaf by ``serve_pspecs``."""
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    return [(s, shd.NamedSharding(mesh, p).local_ranges(s.shape))
+            for s, p in zip(tree_leaves(lm.model_specs(cfg)),
+                            tree_leaves(lm.serve_pspecs(cfg, mesh)))]
+
+
+def sd_worker(rank: int, world: int, store: str, out_dir: str,
+              opts: dict) -> None:
+    """One rank of the decode-over-sharded-caches phases (a spawned
+    process)."""
+    import datetime
+
+    import torch.distributed as dist
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    dev = torch.device(opts["device"], 0) if opts["device"] == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PAR_GROUP_TIMEOUT_S))
+    out = {}
+    for ph in sd_phases(opts):
+        t0 = time.perf_counter()
+        out[ph.name] = _sd_phase(dev, ph, rank, world, out_dir)
+        _free(dev)
+        if rank == 0:
+            log(f"  rank 0: {ph.name} done in {time.perf_counter() - t0:.2f} "
+                "s")
+    pathlib.Path(out_dir, f"sd{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def sd_phases(opts: dict) -> list:
+    """The phases ``opts`` asks for (``"phases"``: names; all by default),
+    at smoke sizes with ``"smoke"``."""
+    names = opts.get("phases", [ph.name for ph in SD_PHASES])
+    return [ph.at_smoke_size() if opts.get("smoke") else ph
+            for ph in SD_PHASES if ph.name in names]
+
+
+def run_sharded_decode(opts: dict) -> dict:
+    """The decode-over-sharded-caches phases: SD_RANKS gloo ranks on the
+    one card, each phase's mesh over them (sharded_decode,
+    sharded_decode_xlstm, sharded_decode_long, sharded_decode_long_ring,
+    sharded_seamless).  Their times are gloo on one card."""
+    import shutil
+    import tempfile
+
+    out = {"ranks": SD_RANKS, "backend": "gloo, one card"}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sd_")
+    try:
+        store = os.path.join(out_dir, "store")
+        t0 = time.perf_counter()
+        codes = _spawn(sd_worker, [(r, SD_RANKS, store, out_dir, opts)
+                                   for r in range(SD_RANKS)], PAR_DEADLINE_S)
+        out["seconds"] = time.perf_counter() - t0
+        assert codes == [0] * SD_RANKS, f"ranks exited with {codes}"
+        ranks = [json.loads(pathlib.Path(out_dir, f"sd{r}.json").read_text())
+                 for r in range(SD_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cuda = opts["device"] == "cuda"
+    for ph in sd_phases(opts):
+        name = ph.name
+        r = out[name] = ranks[0][name]
+        log(f"phase {name} (gloo, {SD_RANKS} ranks on one card, mesh "
+            f"{r['mesh']}): {r['model']}, batch {r['batch']}, {r['slots']} "
+            f"slots, prompt {r['prompt']} (frames {r['frames']}), "
+            f"{r['steps']} steps from position {r['first_position']}: ms a "
+            f"step by rank {r['ms_by_rank']} (median of steps 2..; first "
+            f"{r['first_ms_by_rank']}; one process "
+            f"{r['one_process_ms']:.2f}), prefill s {r['prefill_s_by_rank']}, "
+            f"{r['tokens_s']:.1f} tok/s; weight bytes by rank "
+            f"{r['bytes_by_rank']} of {r['whole_bytes']}, cache bytes by "
+            f"rank {r['cache_bytes_by_rank']} of {r['whole_cache_bytes']}, "
+            f"peak GiB by rank {r['peak_gib_by_rank']}, flash launches by "
+            f"rank {r['launches_by_rank']} (tc {r['tc_by_rank']}); logits "
+            f"bf16 against one process {r['bf16_vs_one_process']}, witness "
+            f"(every weight one ulp off) {r['witness']}, bounds mean "
+            f"{ph.bf16_mean} top-1 {ph.bf16_top1}, one position late "
+            f"{r['one_position_late']}; float32 at {r['f32_layers']} layers "
+            f"{r['f32_vs_one_process']} (witnesses by seed "
+            f"{r['f32_witness']}, largest logit {r['f32_max_logit']:.4g}); "
+            f"caches by rank {r['caches_by_rank']}; rank 0's seconds "
+            f"{r['seconds']}")
+    for ph in sd_phases(opts):
+        name = ph.name
+        r = out[name]
+        assert r["finite"], r
+        model = r["mesh"][1]
+        for i, rb in enumerate(r["bytes_by_rank"]):
+            assert rb == ranks[i][name]["expected_bytes"], (name, i, rb)
+            assert rb / r["whole_bytes"] <= 1 / model + 0.06, (name, rb)
+        for i, cb in enumerate(r["cache_bytes_by_rank"]):
+            assert cb == ranks[i][name]["expected_cache_bytes"], (name, i)
+            # the rings (head_dim over model alone) add ~0.1% at full size
+            assert opts.get("smoke") or abs(
+                cb / r["whole_cache_bytes"] - 1 / SD_RANKS) \
+                <= TP_SHARE_SLACK, (name, cb, r["whole_cache_bytes"])
+        # bf16 by the witness rule and by the phase's absolute bounds (at
+        # decode the witness itself reads above the prefill phases'
+        # BF16_LOGITS_MEAN; the bounds sit well under the witness's)
+        wit, cmp = r["witness"], r["bf16_vs_one_process"]
+        assert cmp["mean_abs"] <= WITNESS_RATIO * wit["mean_abs"], (name, cmp,
+                                                                   wit)
+        assert cmp["top1"] >= wit["top1"] - WITNESS_TOP1_SLACK, (name, cmp,
+                                                                wit)
+        if not opts.get("smoke"):
+            assert cmp["mean_abs"] <= ph.bf16_mean, (name, cmp)
+            assert cmp["top1"] >= ph.bf16_top1, (name, cmp)
+            # the bound fails a wrong answer: under half of the reading of
+            # the one-process logits against themselves one position late
+            assert ph.bf16_mean <= 0.5 * r["one_position_late"]["mean_abs"], (
+                name, r["one_position_late"])
+        # float32 within SD_F32_TOL, or twice the smaller float32 witness
+        # where that is larger (xlstm-350m: its logits move by ~1e-4 under
+        # a one-ulp change of every weight), the witnesses under 1e-2 of
+        # the largest logit so that the bound can still fail a wrong value
+        wits = [w["max_abs"] for w in r["f32_witness"]]
+        f32_tol = max(SD_F32_TOL, 2 * min(wits))
+        assert 2 * max(wits) <= 1e-2 * r["f32_max_logit"], r
+        assert r["f32_vs_one_process"]["max_abs"] <= f32_tol, (name, r)
+        for caches in r["caches_by_rank"]:
+            assert all(c["seeded_kept"] for c in caches.values()), name
+            for group, g32 in caches["f32"]["groups"].items():
+                assert g32["max_abs"] <= SD_F32_TOL, (name, group, g32)
+            for group, g in caches["bf16"]["groups"].items():
+                w = caches["witness"]["groups"][group]
+                assert g["mean_abs"] <= WITNESS_RATIO * w["mean_abs"], (
+                    name, group, g, w)
+        # the encoder's layers launch the kernel (tc) on each rank's heads;
+        # decode attention is plain, as the reference's (on the CPU the
+        # wrapper runs its plain version and counts nothing)
+        want = ph.config().n_encoder_layers if cuda else 0
+        assert r["launches_by_rank"] == [want] * SD_RANKS, r
+        assert r["tc_by_rank"] == r["launches_by_rank"], r
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
@@ -4355,7 +4977,8 @@ def main(argv=None) -> None:
     # 128 and Skv != S, GQA ratios 1 and 4, rows with no key, a window
     # without causal, and the shapes the mixer and seamless paths launch
     # below their full-width prefills (seamless_decode's encoder: batch 4
-    # over 4,096 frames); the short path at S 1, 8 and 32 in both dtypes
+    # over 4,096 frames; sharded_seamless's: each rank's 4 of its 16 heads);
+    # the short path at S 1, 8 and 32 in both dtypes
     bf, f32 = torch.bfloat16, torch.float32
     for label, b, s, skv, h, hk, hd, dtype, causal, window, path in [
             ("tc-hd64-gqa1", 2, 1000, 1000, 8, 8, 64, bf, True, 0, "tc"),
@@ -4372,6 +4995,8 @@ def main(argv=None) -> None:
             ("tc-hd64-cross-seamless", 1, 3000, 5000, 16, 16, 64, bf, False,
              0, "tc"),
             ("tc-hd64-bidir-seamless-decode", 4, 4096, 4096, 16, 16, 64, bf,
+             False, 0, "tc"),
+            ("tc-hd64-bidir-seamless-rank", 4, 4096, 4096, 4, 4, 64, bf,
              False, 0, "tc"),
             ("short-s1-f32", 4096, 1, 1, 4, 4, 64, f32, False, 0, "short"),
             ("short-s1-bf16", 4096, 1, 1, 4, 4, 64, bf, False, 0, "short"),
@@ -4565,6 +5190,11 @@ def main(argv=None) -> None:
         "megatron_train": sum(
             tensor_parallel["megatron_train"]["launches_by_rank"])}
     launches["flash_attention"] += sum(tp_flash.values())
+    sharded = run_sharded_decode({"device": "cuda"})
+    parallel["sharded_decode"] = sharded
+    sd_flash = {ph.name: sum(sharded[ph.name]["launches_by_rank"])
+                for ph in SD_PHASES}
+    launches["flash_attention"] += sum(sd_flash.values())
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
@@ -4584,7 +5214,8 @@ def main(argv=None) -> None:
                    lm_out["decode_window"]["launches_by_path"], emb_paths]
     tp_tc = sum(tensor_parallel["megatron_prefill"]["tc_by_rank"]) + sum(
         sum(tensor_parallel["ep_prefill"][k]["tc_by_rank"])
-        for k in ("megatron", "ep_seq"))
+        for k in ("megatron", "ep_seq")) + sum(
+        sum(sharded[ph.name]["tc_by_rank"]) for ph in SD_PHASES)
     paths = {}
     for path, label in (("tc", "a"), ("short", "b"), ("simt", "a32")):
         r = by_label[label]
@@ -4615,7 +5246,7 @@ def main(argv=None) -> None:
                                   lm_out["decode_window"]["launches"],
                               "embedder": emb_launches, **mixer_flash,
                               **vlm_flash, **seamless_flash, **phi3_flash,
-                              **tp_flash},
+                              **tp_flash, **sd_flash},
         "lm_prefill": lm_out["prefill"], "lm_serve": lm_out["serve"],
         "lm_decode_window": lm_out["decode_window"],
         "lm_decode_ring": lm_out["decode_ring"],

@@ -24,6 +24,14 @@ Options of the config that mean nothing different on one device:
   ``parallel.tensor_parallel.ModelGroup``) computes the heads of its
   query columns, widened to whole GQA groups, and sums the ranks' row
   blocks of ``wo`` (:func:`_tp_attention`).
+* Decode on a mesh (:func:`attention_decode` and
+  :func:`attention_decode_two_tier` with ``kv``, the cache's
+  ``parallel.sharding.CacheSlice``): each rank holds ``cache_pspecs``'
+  slice of the slots (over ``model``, or over (data, model) at batch 1)
+  under every strategy, scores them at their global positions and merges
+  its softmax with the other ranks' (flash-decoding); under ``megatron``
+  the token's q/k/v are gathered over ``model`` first and ``wo`` is
+  row-parallel.
 * ``decode_cache_update="dus"`` writes the new token's slot by
   ``dynamic_update_slice`` where ``"masked"`` rewrites the cache through a
   one-hot ``where``; both give the same values, and the port writes that
@@ -305,10 +313,68 @@ def attention_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
     return _out_proj(params, _attend(q, k, v, causal, window, impl), cfg)
 
 
+# ---------------------------------------------------------------------------
+# Decode pieces (one device, or a rank's slices on a mesh)
+# ---------------------------------------------------------------------------
+
+def _decode_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp,
+                cross: bool):
+    """The token's q (B,1,H,hd) and, unless ``cross``, k and v (B,1,Hk,hd),
+    whole on every rank: with ``tp`` and a projection's head columns split
+    over it, each rank's columns are gathered over ``model`` (the split
+    ones in one gather)."""
+    b, hd = x.shape[0], cfg.resolved_head_dim
+    names = ("wq",) if cross else ("wq", "wk", "wv")
+    heads = dict(wq=cfg.n_heads, wk=cfg.n_kv_heads, wv=cfg.n_kv_heads)
+    ys = {n: torch.matmul(x, params[n]) for n in names}
+    split = [n for n in names if tp is not None
+             and tp.split(params[n].shape[1], heads[n] * hd)]
+    if split:
+        got = collectives.all_gather_cat(
+            torch.cat([ys[n] for n in split], dim=-1), tp.mesh, tp.dims, -1)
+        pieces = got.reshape(b, 1, tp.size, -1).split(
+            [ys[n].shape[-1] for n in split], dim=-1)
+        for n, piece in zip(split, pieces):
+            ys[n] = piece.reshape(b, 1, -1)
+    return tuple(ys[n].reshape(b, 1, heads[n], hd) for n in names)
+
+
+def _decode_out(params: PyTree, o: torch.Tensor, tp) -> torch.Tensor:
+    """o (B,Hk,G,1,hd) through ``wo``; with its rows split over ``tp``,
+    this rank's rows times its columns of o, summed over ``model``."""
+    flat = o.permute(0, 3, 1, 2, 4).reshape(o.shape[0], 1, -1)
+    wo = params["wo"]
+    if tp is not None and tp.split(wo.shape[0], flat.shape[-1]):
+        c0, c1 = tp.span(wo.shape[0])
+        return tp.reduce(torch.matmul(flat[..., c0:c1], wo))
+    return torch.matmul(flat, wo)
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int,
+                start: int) -> None:
+    """The token's ``new`` (B,1,...) into global slot ``slot`` of the cache
+    whose slots ``start``.. this rank holds, in place, where it holds it."""
+    if start <= slot < start + cache.shape[1]:
+        cache[:, slot - start] = new[:, 0].to(cache.dtype)
+
+
+def _pv(v: torch.Tensor, hd_dims=(), mesh=None):
+    """The P.V product of weights (B,Hk,G,1,S) and the cache ``v``
+    (B,S,Hk,hd), laid out (B,Hk,G,1,hd) and cast to v's dtype; with
+    ``hd_dims``, v holds this rank's share of head_dim over them, and the
+    shares are gathered."""
+    def pv(w):
+        o = torch.einsum("bkgst,btkh->bkgsh", w.to(v.dtype), v)
+        if hd_dims:
+            o = collectives.all_gather_cat(o, mesh, hd_dims, -1)
+        return o
+    return pv
+
+
 def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: int, cfg: ModelConfig,
                      angles: Optional[torch.Tensor] = None,
-                     cross: bool = False):
+                     cross: bool = False, tp=None, kv=None):
     """One-token decode.  x (B,1,D); cache_k/v (B,S,Hk,hd) ring buffers.
 
     Returns (out (B,1,D), cache_k, cache_v).  The new token's K/V go into
@@ -317,49 +383,57 @@ def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,
     slot; the values are the same and the port saves the copy),
     so the returned caches are the ones passed in.  With ``cross`` the cache
     holds the encoder's precomputed K/V: no k/v projection, no write, every
-    key attended."""
+    key attended.
+
+    On a mesh the caches are this rank's slices and ``kv`` their
+    ``parallel.sharding.CacheSlice``: the slots (global S) split over the
+    dims ``kv.dims[1]``.  The token's q, k and v are whole on every rank
+    (gathered over ``tp`` where the head columns are split), the rank that
+    holds slot ``pos % S`` writes it, and each rank scores every head over
+    its slots at their global positions; the softmax spans the ranks
+    (``tensor_parallel.flash_merge``: the max, then the sums and the
+    partial P.V products in one all-reduce).  ``wo`` takes this rank's rows under ``tp``."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     hk, h = cfg.n_kv_heads, cfg.n_heads
     g = h // hk
-    q = torch.matmul(x, params["wq"]).reshape(b, 1, h, hd)
+    proj = _decode_qkv(params, x, cfg, tp, cross)
+    q = proj[0]
     if "q_norm" in params:
         q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
     if angles is not None:
         q = rope_lib.apply_rope(q, angles)
+    mesh, seq, start = (None, (), 0) if kv is None else (
+        kv.mesh, kv.dims[1], kv.start(1))
     if not cross:
-        k_new = torch.matmul(x, params["wk"]).reshape(b, 1, hk, hd)
-        v_new = torch.matmul(x, params["wv"]).reshape(b, 1, hk, hd)
+        k_new, v_new = proj[1:]
         if "k_norm" in params:
             k_new = rmsnorm({"scale": params["k_norm"]}, k_new, cfg.norm_eps)
         if angles is not None:
             k_new = rope_lib.apply_rope(k_new, angles)
-        slot = pos % cache_k.shape[1]
-        cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+        slot = pos % (cache_k.shape[1] if kv is None else kv.whole(1))
+        _write_slot(cache_k, k_new, slot, start)
+        _write_slot(cache_v, v_new, slot, start)
     s = cache_k.shape[1]
     qg = q.reshape(b, 1, hk, g, hd)
     scores = (torch.einsum("bskgh,btkh->bkgst", qg, cache_k)
               / math.sqrt(hd)).float()
     if not cross:
-        kpos = torch.arange(s, device=x.device)
+        kpos = start + torch.arange(s, device=x.device)
         valid = kpos <= pos                   # causal within the cache
         if cfg.sliding_window:
             valid &= pos - kpos < cfg.sliding_window
         scores = scores.masked_fill(~valid, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.exp(scores - m)
-    l = p.sum(dim=-1, keepdim=True)  # noqa: E741
-    o = torch.einsum("bkgst,btkh->bskgh", (p / l).to(cache_v.dtype), cache_v)
-    out = _out_proj(params, o.reshape(b, 1, h, hd), cfg)
-    return out, cache_k, cache_v
+    o = tensor_parallel.flash_merge([(scores, _pv(cache_v), seq)], mesh)
+    return _decode_out(params, o.to(cache_v.dtype), tp), cache_k, cache_v
 
 
 def attention_decode_two_tier(params: PyTree, x: torch.Tensor,
                               main_k: torch.Tensor, main_v: torch.Tensor,
                               ring_k: torch.Tensor, ring_v: torch.Tensor,
                               pos: int, cfg: ModelConfig,
-                              angles: Optional[torch.Tensor] = None):
+                              angles: Optional[torch.Tensor] = None,
+                              tp=None, kv=None, ring=None):
     """One-token decode over the two-tier cache.  x (B,1,D); main_k/v
     (B,S,Hk,hd) hold positions 0..S-1 and are read, never written; ring_k/v
     (B,W,Hk,hd) take the new token's K/V in slot ``(pos - S) % W``, in
@@ -373,30 +447,44 @@ def attention_decode_two_tier(params: PyTree, x: torch.Tensor,
     before the float32 cast (``attention_decode`` divides), ``k_norm``
     applies when ``q_norm`` is in ``params``, and nothing merges the ring
     into the main cache, so from step S + W on each new token overwrites
-    the slot of the token W before it, which is then attended no more."""
+    the slot of the token W before it, which is then attended no more.
+
+    On a mesh (``kv`` and ``ring`` the ``CacheSlice`` of the main cache and
+    of the ring), the main cache is read as :func:`attention_decode` reads
+    it, and the rings hold this rank's share of head_dim (``ring.dims[3]``):
+    each rank writes its share of the new K/V, the ring's scores are its
+    partial sums over head_dim summed over those dims, and its P.V gives
+    this rank's share of o's head_dim, gathered."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     hk, h = cfg.n_kv_heads, cfg.n_heads
     g = h // hk
-    s, w = main_k.shape[1], ring_k.shape[1]
-    q = torch.matmul(x, params["wq"]).reshape(b, 1, h, hd)
-    k_new = torch.matmul(x, params["wk"]).reshape(b, 1, hk, hd)
-    v_new = torch.matmul(x, params["wv"]).reshape(b, 1, hk, hd)
+    q, k_new, v_new = _decode_qkv(params, x, cfg, tp, cross=False)
     if "q_norm" in params:
         q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
         k_new = rmsnorm({"scale": params["k_norm"]}, k_new, cfg.norm_eps)
     if angles is not None:
         q = rope_lib.apply_rope(q, angles)
         k_new = rope_lib.apply_rope(k_new, angles)
+    mesh, seq, start = (None, (), 0) if kv is None else (
+        kv.mesh, kv.dims[1], kv.start(1))
+    s = main_k.shape[1] if kv is None else kv.whole(1)
+    w = ring_k.shape[1]
+    d0, d1 = (0, hd) if ring is None else ring.ranges[3]
+    hd_dims = () if ring is None else ring.dims[3]
+    mesh = mesh if ring is None else ring.mesh
     slot = (pos - s) % w
-    ring_k[:, slot] = k_new[:, 0].to(ring_k.dtype)
-    ring_v[:, slot] = v_new[:, 0].to(ring_v.dtype)
+    _write_slot(ring_k, k_new[..., d0:d1], slot, 0)
+    _write_slot(ring_v, v_new[..., d0:d1], slot, 0)
 
     qg = q.reshape(b, 1, hk, g, hd)
     scale = 1.0 / math.sqrt(hd)
     s_main = (torch.einsum("bskgh,btkh->bkgst", qg, main_k) * scale).float()
-    s_ring = (torch.einsum("bskgh,btkh->bkgst", qg, ring_k) * scale).float()
-    kpos_main = torch.arange(s, device=x.device)
+    s_ring = (torch.einsum("bskgh,btkh->bkgst", qg[..., d0:d1], ring_k)
+              * scale).float()
+    if hd_dims:
+        collectives.all_reduce(s_ring, mesh, hd_dims)
+    kpos_main = start + torch.arange(main_k.shape[1], device=x.device)
     kpos_ring = s + torch.arange(w, device=x.device)
     valid_main, valid_ring = kpos_main <= pos, kpos_ring <= pos
     if cfg.sliding_window:
@@ -404,15 +492,7 @@ def attention_decode_two_tier(params: PyTree, x: torch.Tensor,
         valid_ring &= pos - kpos_ring < cfg.sliding_window
     s_main = s_main.masked_fill(~valid_main, NEG_INF)
     s_ring = s_ring.masked_fill(~valid_ring, NEG_INF)
-    m = torch.maximum(s_main.amax(dim=-1, keepdim=True),
-                      s_ring.amax(dim=-1, keepdim=True))
-    p_main = torch.exp(s_main - m)
-    p_ring = torch.exp(s_ring - m)
-    l = (p_main.sum(dim=-1, keepdim=True)  # noqa: E741
-         + p_ring.sum(dim=-1, keepdim=True))
-    o = (torch.einsum("bkgst,btkh->bskgh", (p_main / l).to(main_v.dtype),
-                      main_v)
-         + torch.einsum("bkgst,btkh->bskgh", (p_ring / l).to(ring_v.dtype),
-                        ring_v))
-    out = _out_proj(params, o.reshape(b, 1, h, hd), cfg)
-    return out, ring_k, ring_v
+    o = tensor_parallel.flash_merge(
+        [(s_main, _pv(main_v), seq), (s_ring, _pv(ring_v, hd_dims, mesh), ())],
+        mesh)
+    return _decode_out(params, o.to(main_v.dtype), tp), ring_k, ring_v

@@ -10,6 +10,7 @@ cross-attention to the encoder's output between the mixer and the MLP.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -202,37 +203,60 @@ def layer_cache_specs(cfg: ModelConfig, spec: LayerSpec, batch: int,
     return out
 
 
+@dataclass(frozen=True)
+class DecodeShards:
+    """A layer's decode on a mesh: ``layout`` (a
+    ``parallel.sharding.BatchLayout``) splits the token batch, ``tp`` is the
+    mesh's ``model`` group (None where it has one rank) and ``caches`` maps
+    each of the layer's cache leaves to its
+    ``parallel.sharding.CacheSlice``."""
+    layout: Any
+    tp: Any
+    caches: Dict[str, Any]
+
+
 def layer_decode(params: PyTree, h: torch.Tensor, cache: PyTree, pos: int,
                  cfg: ModelConfig, spec: LayerSpec,
-                 angles: Optional[torch.Tensor]) -> Tuple[torch.Tensor,
-                                                          PyTree]:
+                 angles: Optional[torch.Tensor],
+                 shards: Optional[DecodeShards] = None
+                 ) -> Tuple[torch.Tensor, PyTree]:
     """One token through one layer.  The cache's tensors (views into the
     stacked caches of ``lm.init_cache``) are updated in place, and the
     returned cache is the one passed in.  With ``cfg.decode_ring``,
-    attention writes only its ring and reads the main cache."""
+    attention writes only its ring and reads the main cache.
+
+    On a mesh (``shards``) h holds this rank's batch rows, replicated over
+    ``model``; params and the cache are this rank's slices: attention's
+    slots split over the ranks, the recurrent states' channels over
+    ``model`` (each mixer's decode says how it computes on them), and the
+    MLP as the forward's (:func:`_mlp_out`)."""
+    tp = None if shards is None else shards.tp
+    slices = {} if shards is None else shards.caches
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
     if spec.mixer == "attn":
         if cfg.decode_ring:
             mixed, _, _ = attention.attention_decode_two_tier(
                 params["attn"], x, cache["k"], cache["v"], cache["ring_k"],
-                cache["ring_v"], pos, cfg, angles=angles)
+                cache["ring_v"], pos, cfg, angles=angles, tp=tp,
+                kv=slices.get("k"), ring=slices.get("ring_k"))
         else:
             mixed, _, _ = attention.attention_decode(
                 params["attn"], x, cache["k"], cache["v"], pos, cfg,
-                angles=angles)
+                angles=angles, tp=tp, kv=slices.get("k"))
         new = {}
     elif spec.mixer == "mamba":
         mixed, conv, hst = mamba.mamba_decode(params["mamba"], x,
-                                              cache["conv"], cache["h"], cfg)
+                                              cache["conv"], cache["h"], cfg,
+                                              tp)
         new = {"conv": conv, "h": hst}
     elif spec.mixer == "mlstm":
         mixed, c, n = xlstm.mlstm_decode(params["mlstm"], x, cache["c"],
-                                         cache["n"], cfg)
+                                         cache["n"], cfg, tp)
         new = {"c": c, "n": n}
     elif spec.mixer == "slstm":
         names = ("c", "n", "m", "h")
         mixed, state = xlstm.slstm_decode(
-            params["slstm"], x, tuple(cache[k] for k in names), cfg)
+            params["slstm"], x, tuple(cache[k] for k in names), cfg, tp)
         new = dict(zip(names, state))
     else:
         raise ValueError(spec.mixer)
@@ -243,9 +267,10 @@ def layer_decode(params: PyTree, h: torch.Tensor, cache: PyTree, pos: int,
         xc = rmsnorm(params["norm_cross"], h, cfg.norm_eps)
         mixed, _, _ = attention.attention_decode(
             params["cross_attn"], xc, cache["cross_k"], cache["cross_v"],
-            pos, cfg, cross=True)
+            pos, cfg, cross=True, tp=tp, kv=slices.get("cross_k"))
         h = h + mixed
-    out, _ = _mlp_out(params, h, cfg, spec)
+    out, _ = _mlp_out(params, h, cfg, spec,
+                      None if shards is None else shards.layout)
     if out is not None:
         h = h + out
     return h, cache
@@ -253,10 +278,13 @@ def layer_decode(params: PyTree, h: torch.Tensor, cache: PyTree, pos: int,
 
 def block_decode(params_tuple: Tuple[PyTree, ...], h: torch.Tensor,
                  caches: Tuple[PyTree, ...], pos: int, cfg: ModelConfig,
-                 angles: Optional[torch.Tensor]):
+                 angles: Optional[torch.Tensor],
+                 shards: Optional[Tuple[DecodeShards, ...]] = None):
+    """One token through one period; ``shards`` (on a mesh) one
+    :class:`DecodeShards` a pattern position."""
     new_caches = []
     for p, spec in enumerate(cfg.pattern):
         h, c = layer_decode(params_tuple[p], h, caches[p], pos, cfg, spec,
-                            angles)
+                            angles, None if shards is None else shards[p])
         new_caches.append(c)
     return h, tuple(new_caches)

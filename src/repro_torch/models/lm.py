@@ -15,6 +15,12 @@ slice, split as :func:`_constrain_batch` says, the counterpart of the JAX
 package's activation constraint at block boundaries; the result is a
 DTensor with that split.
 
+Decode and prefill on a mesh (``decode_step``, ``prefill`` and
+``init_cache`` with ``mesh=``) follow the JAX package's decode cell: the
+token batch over (pod, data), the weights by :func:`serve_pspecs`, each
+cache leaf as this rank's ``cache_pspecs`` slice (a DTensor of its local
+tensor); every rank computes on its slices with explicit collectives.
+
 ``lm_loss`` trains: with ``cfg.remat == "full"`` each block is
 rematerialised in the backward pass (``torch.utils.checkpoint``, the JAX
 package's ``jax.checkpoint``).  Its attention takes the plain route unless
@@ -42,7 +48,8 @@ from repro_torch.parallel import sharding as shd
 
 __all__ = ["model_specs", "init_model", "params_from_jax", "encode",
            "forward_hidden", "lm_loss", "lm_logits", "cache_specs",
-           "init_cache", "fill_cross_caches", "decode_step", "prefill"]
+           "serve_pspecs", "init_cache", "fill_cross_caches", "decode_step",
+           "prefill"]
 
 
 # ---------------------------------------------------------------------------
@@ -490,40 +497,191 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int,
     return tuple(out)
 
 
+def serve_pspecs(cfg: ModelConfig, mesh) -> PyTree:
+    """The serving weights' PartitionSpecs on ``mesh``: ``param_pspecs``
+    with fsdp where ``cfg.fsdp`` or ``serve_needs_fsdp`` asks for it, as
+    the JAX package's decode and prefill cells place them."""
+    return shd.param_pspecs(model_specs(cfg), cfg, mesh,
+                            fsdp=cfg.fsdp or shd.serve_needs_fsdp(cfg, mesh))
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq: int, cross_len: int = 0,
-               device=None) -> PyTree:
+               device=None, mesh=None) -> PyTree:
     """Zeroed decode caches of :func:`cache_specs`: a tuple over pattern
     positions, each a dict of tensors with a leading ``n_repeats`` axis
     (attention K/V ring buffers of ``seq`` slots and, with
     ``cfg.decode_ring``, the two-tier cache's ring of recent tokens; Mamba,
     mLSTM and sLSTM states; cross-attention K/V), on ``device`` (CUDA
-    unless the caller asks for another)."""
-    device = resolve_device(device)
-    return tuple({name: torch.zeros(shape, dtype=dt, device=device)
-                  for name, (shape, dt) in layer.items()}
-                 for layer in cache_specs(cfg, batch, seq, cross_len))
+    unless the caller asks for another).
+
+    With ``mesh`` (a ``DeviceMesh``) each leaf is a DTensor of the whole
+    cache whose local tensor is this rank's slice by ``cache_pspecs``
+    (``batch`` the global batch), on the mesh's device type: no rank
+    allocates more than its slices."""
+    specs = cache_specs(cfg, batch, seq, cross_len)
+    if mesh is None:
+        device = resolve_device(device)
+        return tuple({name: torch.zeros(shape, dtype=dt, device=device)
+                      for name, (shape, dt) in layer.items()}
+                     for layer in specs)
+    out = []
+    for layer, shardings in zip(specs, shd.cache_shardings(specs, cfg, mesh,
+                                                           batch)):
+        one = {}
+        for name, (shape, dt) in layer.items():
+            local = tuple(hi - lo for lo, hi in
+                          shardings[name].local_ranges(shape))
+            one[name] = shd.from_local(
+                torch.zeros(local, dtype=dt, device=mesh.device_type),
+                shardings[name], shape)
+        out.append(one)
+    return tuple(out)
 
 
-def fill_cross_caches(params: PyTree, caches: PyTree,
-                      enc_out: torch.Tensor) -> None:
+def _global_cache_specs(caches: PyTree) -> PyTree:
+    """``{name: (shape, dtype)}`` of the whole caches whose DTensor leaves
+    (:func:`init_cache` with a mesh) are this rank's slices."""
+    from torch.distributed.tensor import DTensor
+    out = []
+    for layer in caches:
+        for name, t in layer.items():
+            if not isinstance(t, DTensor):
+                raise TypeError(f"cache leaf {name!r} on a mesh is no "
+                                "DTensor: pass init_cache(..., mesh=)'s")
+        out.append({name: (tuple(t.shape), t.dtype)
+                    for name, t in layer.items()})
+    return tuple(out)
+
+
+def fill_cross_caches(params: PyTree, caches: PyTree, enc_out: torch.Tensor,
+                      cfg: Optional[ModelConfig] = None, mesh=None) -> None:
     """Writes every decoder layer's cross-attention K/V, the encoder's
     output ``enc_out`` (B, S_enc, D) projected by the layers' stacked
     ``wk`` and ``wv`` at once, into the caches of :func:`init_cache` (with
-    ``cross_len`` S_enc), as the JAX package's ``prefill`` computes them."""
-    for layer, cache in zip(params["blocks"], caches):
+    ``cross_len`` S_enc), as the JAX package's ``prefill`` computes them.
+
+    With ``mesh`` (and ``cfg``), params are this rank's slices, caches
+    :func:`init_cache`'s DTensors and enc_out this rank's batch rows: each
+    rank projects the frames of its slice of S_enc (``cache_pspecs``) by
+    ``wk``/``wv`` gathered whole (over (pod, data) where fsdp splits them,
+    over ``model`` where their head columns are split: a layer's weights
+    are smaller than its frames' K/V), so that its slice holds every
+    head."""
+    if mesh is None:
+        for layer, cache in zip(params["blocks"], caches):
+            for w, name in (("wk", "cross_k"), ("wv", "cross_v")):
+                kv = torch.einsum("bsd,rde->rbse", enc_out,
+                                  layer["cross_attn"][w])
+                cache[name].copy_(kv.reshape(cache[name].shape))
+        return
+    specs = _global_cache_specs(caches)
+    slices = shd.cache_slices(specs, cfg, mesh, specs[0]["cross_k"][0][1])
+    pspecs = serve_pspecs(cfg, mesh)["blocks"]
+    tp = tensor_parallel.model_group(mesh)
+    params, caches = shd.to_local(params), shd.to_local(caches)
+    kvd = cfg.n_kv_heads * cfg.resolved_head_dim
+    for layer, spec, cache, sl in zip(params["blocks"], pspecs, caches,
+                                      slices):
+        lo, hi = sl["cross_k"].ranges[1]
+        frames = enc_out[:, lo:hi]
+        ws = tensor_parallel.gather_fsdp(
+            {w: layer["cross_attn"][w] for w in ("wk", "wv")},
+            {w: spec["cross_attn"][w] for w in ("wk", "wv")}, mesh)
         for w, name in (("wk", "cross_k"), ("wv", "cross_v")):
-            kv = torch.einsum("bsd,rde->rbse", enc_out,
-                              layer["cross_attn"][w])
+            if tp is not None and tp.split(ws[w].shape[-1], kvd):
+                ws[w] = collectives.all_gather_cat(ws[w], mesh, tp.dims, -1)
+            kv = torch.einsum("bsd,rde->rbse", frames, ws[w])
             cache[name].copy_(kv.reshape(cache[name].shape))
 
 
+def _serve_layout(mesh, batch: int) -> "shd.BatchLayout":
+    """The token batch's split in decode and prefill on ``mesh``: over
+    (pod, data) by ``batch_pspec``'s default rule, whatever the strategy
+    (the JAX package's decode cell puts no token over ``model``)."""
+    return shd.BatchLayout(mesh, shd.axis_members(
+        shd.batch_pspec(mesh, batch, extra_dims=1)[0]))
+
+
+class _MeshDecode:
+    """Decode on a ``DeviceMesh``, as the JAX package's decode cell places
+    it: the token batch over (pod, data) by ``batch_pspec`` (whatever the
+    strategy), the weights by :func:`serve_pspecs`, the caches by
+    ``cache_pspecs`` (``cache_specs`` the whole caches' shapes).  Each rank
+    computes on its slices with explicit collectives (no DTensor
+    dispatch): each layer gathers its leaves that fsdp splits, then decodes
+    (``blocks.layer_decode`` with its ``DecodeShards``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, cache_specs: PyTree,
+                 batch: int):
+        self.cfg, self.mesh, self.batch = cfg, mesh, batch
+        self.layout = _serve_layout(mesh, batch)
+        self.tp = tensor_parallel.model_group(mesh)
+        self.pspecs = serve_pspecs(cfg, mesh)
+        vocab = (self.pspecs["embed"][0] if cfg.tie_embeddings
+                 else self.pspecs["unembed"][1])
+        self.vocab_dims = (self.tp.dims if self.tp is not None and "model"
+                           in shd.axis_members(vocab) else ())
+        self.shards = tuple(
+            blocks.DecodeShards(self.layout, self.tp, sl)
+            for sl in shd.cache_slices(cache_specs, cfg, mesh, batch))
+
+    def step(self, params: PyTree, caches: PyTree, token: torch.Tensor,
+             pos: int) -> torch.Tensor:
+        """This rank's logits (its batch rows; its vocabulary columns where
+        they are split) of one step; params and caches local tensors."""
+        cfg, mesh = self.cfg, self.mesh
+        top = tensor_parallel.gather_fsdp(
+            {k: params[k] for k in _TOP if k in params},
+            {k: self.pspecs[k] for k in _TOP if k in params}, mesh)
+        tokens = self.layout.rows(token)
+        h = _embed_tokens(top, tokens, cfg, self.tp)
+        angles = _angles_for(cfg, tokens.shape[0], 1, token.device,
+                             position=pos)
+        for i in range(cfg.n_repeats):
+            layer = tensor_parallel.gather_fsdp(
+                take_layer(params["blocks"], i), self.pspecs["blocks"], mesh,
+                offset=1)
+            h, _ = blocks.block_decode(layer, h, take_layer(caches, i), pos,
+                                       cfg, angles, self.shards)
+        h = rmsnorm(top["final_norm"], h, cfg.norm_eps)
+        return _unembed(top, h, cfg, self.tp)
+
+    def dtensor(self, logits: torch.Tensor, seq: int = 1):
+        """This rank's logits (B, seq, V) as a DTensor of the whole."""
+        return self.layout.dtensor(
+            logits, (self.batch, seq, self.cfg.padded_vocab),
+            vocab_dims=self.vocab_dims)
+
+
+def mesh_decoder(cfg: ModelConfig, mesh, caches: PyTree,
+                 batch: int) -> _MeshDecode:
+    """The placements of :func:`decode_step` with ``mesh`` for caches of
+    :func:`init_cache` with that mesh and a token batch of ``batch``: built
+    once, it serves every step on such caches (``decode_step(...,
+    plan=)``)."""
+    return _MeshDecode(cfg, mesh, _global_cache_specs(caches), batch)
+
+
 def decode_step(params: PyTree, caches: PyTree, token: torch.Tensor,
-                pos: int, cfg: ModelConfig):
+                pos: int, cfg: ModelConfig, mesh=None, plan=None):
     """One decode step.  token (B,1) integer; pos the current length.
 
     Returns (logits (B,1,V), caches).  The caches are updated in place
     (attention's ring buffers, see ``attention.attention_decode``, and the
-    recurrent states), and the returned caches are the ones passed in."""
+    recurrent states), and the returned caches are the ones passed in.
+
+    With ``mesh`` (a ``DeviceMesh``) every rank passes the whole token
+    batch, its slices of the parameters (:func:`serve_pspecs`: local
+    tensors or DTensors) and the caches of :func:`init_cache` with that
+    mesh (DTensors, each rank's slice updated in place); the logits are a
+    DTensor split over the token batch's dims and, where the vocabulary
+    is split, over ``model``.  ``plan`` is :func:`mesh_decoder`'s for
+    these caches and batch (built here when it is not given)."""
+    if mesh is not None:
+        run = plan or mesh_decoder(cfg, mesh, caches, token.shape[0])
+        logits = run.step(shd.to_local(params), shd.to_local(caches), token,
+                          int(pos))
+        return run.dtensor(logits), caches
     h = _embed_tokens(params, token)
     angles = _angles_for(cfg, token.shape[0], 1, token.device,
                          position=int(pos))
@@ -536,7 +694,7 @@ def decode_step(params: PyTree, caches: PyTree, token: torch.Tensor,
 
 
 def prefill(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            cache_len: int):
+            cache_len: int, mesh=None):
     """Run the full prompt by replaying it one token at a time through
     :func:`decode_step` (exact), materializing decode caches of capacity
     ``cache_len``.  Returns (logits (B,S,V), caches).  Under
@@ -547,17 +705,39 @@ def prefill(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     K/V from the encoder's output.  Only ``batch["tokens"]`` is replayed,
     as in the JAX package: a vision model's ``vision_embeds`` are ignored
     and its prefix positions take the decode positions (negative below
-    V - 1), not the vision grid."""
+    V - 1), not the vision grid.
+
+    With ``mesh`` every rank passes the whole batch and its slices of the
+    parameters (:func:`serve_pspecs`); the encoder runs on the mesh as
+    ``encode`` does (the rank's batch rows, under ``megatron`` its heads),
+    the cross caches are filled as :func:`fill_cross_caches` says, and the
+    replay goes through the sharded decode step.  The logits are a DTensor
+    as :func:`decode_step`'s, the caches :func:`init_cache`'s DTensors."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    if mesh is not None:
+        params = shd.to_local(params)
     enc_out = None
     if cfg.encoder_decoder:
-        enc_out = encode(params, batch["enc_embeds"], cfg)
-    caches = init_cache(cfg, b, cache_len,
-                        0 if enc_out is None else enc_out.shape[1],
-                        device=tokens.device)
+        enc = batch["enc_embeds"]
+        if mesh is None:
+            enc_out = encode(params, enc, cfg)
+        else:
+            layout = _serve_layout(mesh, b)
+            enc_out = encode(params, layout.rows(enc), cfg, layout=layout,
+                             pspecs=serve_pspecs(cfg, mesh))
+    cross_len = 0 if enc_out is None else enc_out.shape[1]
+    caches = init_cache(cfg, b, cache_len, cross_len, device=tokens.device,
+                        mesh=mesh)
     if enc_out is not None:
-        fill_cross_caches(params, caches, enc_out)
+        fill_cross_caches(params, caches, enc_out, cfg, mesh)
+    if mesh is not None:
+        run = _MeshDecode(cfg, mesh, cache_specs(cfg, b, cache_len,
+                                                 cross_len), b)
+        local = shd.to_local(caches)
+        logits = [run.step(params, local, tokens[:, i:i + 1], i)[:, 0]
+                  for i in range(s)]
+        return run.dtensor(torch.stack(logits, dim=1), s), caches
     logits = []
     for i in range(s):
         lg, caches = decode_step(params, caches, tokens[:, i:i + 1], i, cfg)

@@ -17,7 +17,9 @@ channels: partial sums, summed over ``model``), and ``in_proj`` on its
 fused (x, z) columns, which the contiguous slice cuts across the halves;
 its product is gathered over ``model`` and each rank takes both halves of
 its own channels (``tensor_parallel.own_channels``).  Each rank scans its
-channels.
+channels.  In decode on a mesh the states hold the rank's channels
+under every strategy (``cache_pspecs``), and whole weights are cut to them
+(:func:`mamba_decode`).
 """
 from __future__ import annotations
 
@@ -128,19 +130,47 @@ def mamba_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
     return out if tp is None else tp.reduce(out)
 
 
+def _channel_params(params: PyTree, c0: int, c1: int, di: int) -> PyTree:
+    """Whole Mamba weights cut to the inner channels [c0, c1): both halves
+    of ``in_proj``'s fused columns, and every per-channel leaf."""
+    out = {k: params[k].narrow(d, c0, c1 - c0) for k, d in (
+        ("conv_w", 1), ("conv_b", 0), ("x_proj", 0), ("dt_proj", 1),
+        ("dt_bias", 0), ("A_log", 0), ("D", 0), ("out_proj", 0))}
+    w = params["in_proj"]
+    out["in_proj"] = torch.cat([w[:, c0:c1], w[:, di + c0:di + c1]], dim=-1)
+    return out
+
+
 def mamba_decode(params: PyTree, x: torch.Tensor, conv_state: torch.Tensor,
-                 h_state: torch.Tensor, cfg: ModelConfig):
+                 h_state: torch.Tensor, cfg: ModelConfig, tp=None):
     """One-token decode.  x (B,1,D); conv_state (B,W-1,di); h_state
-    (B,di,N).  Returns (out (B,1,D), conv_state, h_state), new tensors."""
-    xu, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    (B,di,N).  Returns (out (B,1,D), conv_state, h_state), new tensors.
+
+    On a mesh (``tp``) the states may hold this rank's share of the inner
+    channels (``cache_pspecs`` splits d_inner over ``model``): the rank
+    steps those channels only.  Under ``megatron`` its weights are the same
+    channels' (the module's note); otherwise they are whole and cut to
+    them.  ``x_proj``'s and ``out_proj``'s contractions over the channels
+    are summed over ``model``."""
+    di = cfg.d_inner
+    split = tp is not None and tp.split(h_state.shape[1], di)
+    if split and tp.split(params["conv_b"].shape[0], di):
+        xu, z = tensor_parallel.own_channels(
+            torch.matmul(x, params["in_proj"]), tp)
+    else:
+        if split:
+            params = _channel_params(params, *tp.span(h_state.shape[1]), di)
+        xu, z = torch.matmul(x, params["in_proj"]).chunk(2, dim=-1)
+    tp = tp if split else None
     x_conv = F.silu(_causal_conv(xu, params["conv_w"], params["conv_b"],
                                  init_state=conv_state))
     new_conv_state = torch.cat([conv_state[:, 1:], xu.to(conv_state.dtype)],
                                dim=1)
-    a, bx, c = _ssm_inputs(params, x_conv, cfg)
+    a, bx, c = _ssm_inputs(params, x_conv, cfg, tp)
     h = torch.addcmul(bx[:, 0], a[:, 0], h_state)  # (B,di,N)
     y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None, :]
-    return _gated_out(params, y, x_conv, z, x.dtype), new_conv_state, h
+    out = _gated_out(params, y, x_conv, z, x.dtype)
+    return (out if tp is None else tp.reduce(out)), new_conv_state, h
 
 
 def mamba_cache_specs(cfg: ModelConfig, batch: int):

@@ -20,6 +20,11 @@ halves of a rank's channels taken, as Mamba's ``in_proj``), ``wq``,
 ``model``), ``down`` on its rows; the cell runs on every rank on the
 whole heads.  sLSTM's recurrence is replicated; its ``up``/``down`` split
 on the projection width where it divides, ``up`` as a fused pair.
+
+In decode on a mesh the states are split as ``cache_pspecs`` splits them
+(mLSTM's by head, or on the key dim where the heads do not divide;
+sLSTM's by channel), whatever the strategy: each rank steps its share
+(:func:`mlstm_decode`, :func:`slstm_decode`).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import DTYPES, ParamSpec, PyTree, softcap
-from repro_torch.parallel import tensor_parallel
+from repro_torch.parallel import collectives, tensor_parallel
 
 _IGATE_CAP = 10.0
 
@@ -73,15 +78,14 @@ def _mlstm_qkv_gates(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
         u, z = tensor_parallel.own_channels(
             torch.matmul(tp.copy(x), params["up"]), tp)
     b, s = u.shape[:2]
-
-    def rows(w):
-        y = torch.matmul(u, params[w])
-        return y if tp is None else tp.reduce(y)
-
-    q = rows("wq").reshape(b, s, h, hd)
-    k = rows("wk").reshape(b, s, h, hd) / math.sqrt(hd)
-    v = rows("wv").reshape(b, s, h, hd)
-    gates = rows("w_gates").float() + params["b_gates"]
+    ys = [torch.matmul(u, params[w]) for w in ("wq", "wk", "wv", "w_gates")]
+    if tp is not None:   # the four partial sums in one all-reduce
+        ys = tp.reduce(torch.cat(ys, dim=-1)).split(
+            [y.shape[-1] for y in ys], dim=-1)
+    q = ys[0].reshape(b, s, h, hd)
+    k = ys[1].reshape(b, s, h, hd) / math.sqrt(hd)
+    v = ys[2].reshape(b, s, h, hd)
+    gates = ys[3].float() + params["b_gates"]
     log_i = softcap(gates[..., :h], _IGATE_CAP)          # (B,S,H)
     log_f = F.logsigmoid(gates[..., h:])                 # (B,S,H) <= 0
     return q, k, v, log_i, log_f, z
@@ -152,25 +156,59 @@ def mlstm_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
 
 
 def mlstm_decode(params: PyTree, x: torch.Tensor, c_state: torch.Tensor,
-                 n_state: torch.Tensor, cfg: ModelConfig):
+                 n_state: torch.Tensor, cfg: ModelConfig, tp=None):
     """One-token mLSTM step. c (B,H,hd,hd), n (B,H,hd) float32.  Returns
-    (out (B,1,D), c, n), new tensors."""
+    (out (B,1,D), c, n), new tensors.
+
+    On a mesh (``tp``) the states may hold this rank's share over
+    ``model`` (``cache_pspecs``: the heads where they divide, else the key
+    dim of c and n).  q, k, v and the gates are whole on every rank (summed
+    over ``model`` where ``wq``, ``wk``, ``wv`` and ``w_gates`` are split
+    on their rows); a rank steps its heads' states and its channels of the
+    output, or, holding a share of the key dim, its part of the memory,
+    whose contractions with q are summed over ``model``.  ``down`` takes
+    this rank's channels (its rows under ``megatron``, a cut of the whole
+    leaf otherwise), summed over ``model``."""
     b = x.shape[0]
-    di = cfg.mlstm_inner
-    q, k, v, log_i, log_f, z = _mlstm_qkv_gates(params, x, cfg)
-    i_g = torch.exp(log_i[:, 0])[..., None]  # (B,H,1)
-    f_g = torch.exp(log_f[:, 0])[..., None]
-    ki = k[:, 0] * i_g.to(k.dtype)
+    di, heads = cfg.mlstm_inner, cfg.n_heads
+    hd = di // heads
+    w_split = tp is not None and tp.split(params["down"].shape[0], di)
+    q, k, v, log_i, log_f, z = _mlstm_qkv_gates(params, x, cfg,
+                                                tp if w_split else None)
+    by_head = tp is not None and tp.split(c_state.shape[1], heads)
+    by_key = tp is not None and tp.split(c_state.shape[2], hd)
+    q, k, v = q[:, 0], k[:, 0], v[:, 0]
+    log_i, log_f = log_i[:, 0], log_f[:, 0]
+    if by_head:
+        h0, h1 = tp.span(c_state.shape[1])
+        q, k, v, log_i, log_f = (t[:, h0:h1] for t in (q, k, v, log_i,
+                                                       log_f))
+    i_g = torch.exp(log_i)[..., None]  # (B,H,1)
+    f_g = torch.exp(log_f)[..., None]
+    ki = k * i_g.to(k.dtype)
+    qf = q.float()
+    if by_key:
+        d0, d1 = tp.span(c_state.shape[2])
+        ki, qf = ki[..., d0:d1], qf[..., d0:d1]
     c_new = (c_state * f_g[..., None]
-             + torch.einsum("bhd,bhe->bhde", ki, v[:, 0]).float())
+             + torch.einsum("bhd,bhe->bhde", ki, v).float())
     n_new = n_state * f_g + ki.float()
-    qf = q[:, 0].float()
     h_num = torch.einsum("bhd,bhde->bhe", qf, c_new)
-    denom = torch.clamp_min(torch.einsum("bhd,bhd->bh", n_new, qf).abs(),
-                            1.0)
-    h_out = (h_num / denom[..., None]).reshape(b, 1, di).to(x.dtype)
-    out = h_out * F.silu(z)
-    return torch.matmul(out, params["down"]), c_new, n_new
+    n_dot_q = torch.einsum("bhd,bhd->bh", n_new, qf)
+    if by_key:
+        h_num, n_dot_q = (tp.reduce(t.contiguous()) for t in (h_num,
+                                                              n_dot_q))
+    denom = torch.clamp_min(n_dot_q.abs(), 1.0)
+    h_out = (h_num / denom[..., None]).reshape(b, 1, -1).to(x.dtype)
+    if tp is None or not (w_split or by_head):
+        return torch.matmul(h_out * F.silu(z), params["down"]), c_new, n_new
+    c0, c1 = tp.span(di // tp.size)
+    if not by_head:
+        h_out = h_out[..., c0:c1]
+    down = params["down"]
+    if not w_split:
+        z, down = z[..., c0:c1], down[c0:c1]
+    return tp.reduce(torch.matmul(h_out * F.silu(z), down)), c_new, n_new
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +230,12 @@ def slstm_specs(cfg: ModelConfig) -> PyTree:
     }
 
 
-def _slstm_step(params: PyTree, cfg: ModelConfig, carry, x_t):
-    """carry: (c, n, m, h) each (B,D) float32; x_t: W_in x (B,4D) float32."""
+def _slstm_step(params: PyTree, cfg: ModelConfig, carry, x_t,
+                span=None):
+    """carry: (c, n, m, h) each (B,D) float32; x_t: W_in x (B,4D) float32.
+    With ``span`` (c0, c1), c, n and m hold the channels [c0, c1) and h is
+    whole: the step gives those channels' states (the recurrent product is
+    taken whole, then cut)."""
     c, n, m, h = carry
     d = cfg.d_model
     hh = cfg.n_heads
@@ -202,6 +244,8 @@ def _slstm_step(params: PyTree, cfg: ModelConfig, carry, x_t):
     rec = torch.einsum("bhd,ghde->bghe", hr.to(params["r"].dtype),
                        params["r"]).reshape(b, 4 * d)
     pre = x_t + rec.float() + params["bias"]
+    if span is not None:
+        pre = pre.reshape(b, 4, d)[..., span[0]:span[1]].reshape(b, -1)
     z_pre, i_pre, f_pre, o_pre = pre.chunk(4, dim=-1)
     z = torch.tanh(z_pre)
     o = torch.sigmoid(o_pre)
@@ -250,9 +294,26 @@ def slstm_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
                       int(d * cfg.xlstm_slstm_proj))
 
 
-def slstm_decode(params: PyTree, x: torch.Tensor, state, cfg: ModelConfig):
+def slstm_decode(params: PyTree, x: torch.Tensor, state, cfg: ModelConfig,
+                 tp=None):
     """One-token sLSTM step; state = (c, n, m, h) each (B,D) float32.
-    Returns (out (B,1,D), state), new tensors."""
+    Returns (out (B,1,D), state), new tensors.
+
+    On a mesh (``tp``) the states may hold this rank's channels of d over
+    ``model`` (``cache_pspecs``), which may end inside a head: h is
+    gathered, the rank steps its channels, and the new h is gathered again
+    for the up/down projection (split on its width under ``megatron``)."""
+    d = cfg.d_model
     x_in = torch.matmul(x[:, 0], params["w_in"]).float()
-    state, h = _slstm_step(params, cfg, state, x_in)
-    return _slstm_out(params, h[:, None, :].to(x.dtype)), state
+    if tp is None or not tp.split(state[0].shape[-1], d):
+        state, h = _slstm_step(params, cfg, state, x_in)
+    else:
+        def gather(t):
+            return collectives.all_gather_cat(t, tp.mesh, tp.dims, -1)
+
+        c, n, m, h = state
+        state, h = _slstm_step(params, cfg, (c, n, m, gather(h)), x_in,
+                               span=tp.span(c.shape[-1]))
+        h = gather(h)
+    return _slstm_out(params, h[:, None, :].to(x.dtype), tp,
+                      int(d * cfg.xlstm_slstm_proj)), state

@@ -65,6 +65,17 @@ def all_reduce(t: torch.Tensor, mesh, dims: Sequence[str],
     return t
 
 
+def all_reduce_many(ts: Sequence[torch.Tensor], mesh,
+                    dims: Sequence[str]) -> List[torch.Tensor]:
+    """The sums of the tensors ``ts`` over ``dims``, in float32, in one
+    all-reduce of their flattened concatenation (one collective where
+    each would take its own); new tensors, in ``ts``' shapes."""
+    flat = all_reduce(torch.cat([t.float().reshape(-1) for t in ts]), mesh,
+                      dims)
+    return [part.view(t.shape) for part, t in
+            zip(flat.split([t.numel() for t in ts]), ts)]
+
+
 def all_gather_cat(t: torch.Tensor, mesh, dims: Sequence[str],
                    dim: int) -> torch.Tensor:
     """Every rank's ``t`` over ``dims``, concatenated along ``dim`` in

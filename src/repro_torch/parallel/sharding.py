@@ -20,7 +20,8 @@ or of a shape-only stand-in (``.shape`` a mapping of dim name to size,
 turns a spec into DTensor placements: ``Shard(d)`` on each mesh dim that
 the spec names for tensor dim d, ``Replicate()`` on the others.
 :func:`shard_tree` builds each leaf's DTensor from this rank's own slice,
-with no collective.
+with no collective; :func:`cache_slices` gives each decode-cache leaf's
+split and this rank's ranges, which the decode on a mesh reads.
 """
 from __future__ import annotations
 
@@ -35,7 +36,10 @@ from repro_torch.models.common import (DTYPES, ParamSpec, PyTree, spec_map,
                                        tree_unflatten_like)
 from repro_torch.parallel import collectives
 
-HBM_BYTES_BUDGET = 12 * 2 ** 30  # the JAX package's per-device budget
+#: the JAX package's per-device budget of serving weights
+#: (:func:`serve_needs_fsdp`), kept so that the port places them as it does;
+#: it is not what an H100 (80 GB) holds
+HBM_BYTES_BUDGET = 12 * 2 ** 30
 
 
 class PartitionSpec:
@@ -350,15 +354,67 @@ def cache_shardings(cache_specs: PyTree, cfg: ModelConfig, mesh,
                     cache_pspecs(cache_specs, cfg, mesh, global_batch))
 
 
+@dataclass(frozen=True)
+class CacheSlice:
+    """One layer's decode-cache leaf on a ``DeviceMesh``, by
+    :func:`cache_pspecs` with the stacked layers dim taken off: for each
+    dim, the mesh dims (of more than one rank) it is split over and this
+    rank's [start, stop) along it."""
+    mesh: object
+    dims: Tuple[Tuple[str, ...], ...]
+    ranges: Tuple[Tuple[int, int], ...]
+
+    def start(self, d: int) -> int:
+        return self.ranges[d][0]
+
+    def whole(self, d: int) -> int:
+        """The full length of dim ``d``."""
+        lo, hi = self.ranges[d]
+        return (hi - lo) * collectives.group_size(self.mesh, self.dims[d])
+
+
+def cache_slices(cache_specs: PyTree, cfg: ModelConfig, mesh,
+                 global_batch: int) -> PyTree:
+    """:func:`cache_pspecs` on the ``DeviceMesh`` ``mesh`` as a
+    :class:`CacheSlice` for each leaf of one layer (the leaves of
+    ``cache_specs`` carry the stacked layers dim first, which no rule
+    splits): a tuple over pattern positions of ``{name: CacheSlice}``."""
+    names = tuple(mesh.mesh_dim_names)
+    out = []
+    for layer, specs in zip(cache_specs,
+                            cache_pspecs(cache_specs, cfg, mesh,
+                                         global_batch)):
+        one = {}
+        for name, (shape, _) in layer.items():
+            spec = specs[name]
+            ranges = NamedSharding(mesh, spec).local_ranges(shape)
+            dims = tuple(tuple(a for a in axis_members(e)
+                               if mesh.size(names.index(a)) > 1)
+                         for e in spec)
+            if dims[0]:
+                raise ValueError(f"{name}: {spec} splits the layers dim")
+            one[name] = CacheSlice(mesh, dims[1:], ranges[1:])
+        out.append(one)
+    return tuple(out)
+
+
+def from_local(local: torch.Tensor, sharding: NamedSharding, shape):
+    """A DTensor of the full ``shape`` whose slice on this rank (by
+    ``sharding``) is ``local``: no collective."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
 def shard_tensor(t: torch.Tensor, sharding: NamedSharding):
     """A DTensor of the full tensor ``t`` (on every rank) from this rank's
     slice, on the mesh's device type: no collective."""
-    from torch.distributed.tensor import DTensor
-    local = sharding.local_slice(t).to(sharding.mesh.device_type).contiguous()
-    return DTensor.from_local(local, sharding.mesh, sharding.placements,
-                              run_check=False, shape=t.shape,
-                              stride=torch.empty(t.shape,
-                                                 device="meta").stride())
+    return from_local(
+        sharding.local_slice(t).to(sharding.mesh.device_type).contiguous(),
+        sharding, t.shape)
 
 
 def local_tree(tree: PyTree, pspecs: PyTree, mesh) -> PyTree:

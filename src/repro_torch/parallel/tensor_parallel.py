@@ -27,7 +27,10 @@ columns, or a partial sum) carries its own part.
 * :func:`share_of`: a loss whose value is the whole batch's and whose
   gradient is this rank's share of it;
 * :class:`MomentSlice`: ZeRO-1, a leaf whose AdamW moments are split
-  (``opt_pspecs``) otherwise than the leaf itself.
+  (``opt_pspecs``) otherwise than the leaf itself;
+* :func:`flash_merge`: the attention of one decode query over keys that
+  ranks hold in slices (flash-decoding's merge: a max, then the sums and
+  the P.V products, spanning the ranks).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from dataclasses import dataclass
 from typing import ClassVar, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import (PyTree, tree_leaves,
                                        tree_unflatten_like)
@@ -245,3 +249,37 @@ def replicas_of(dims: Sequence[str], mesh, among: Sequence[str]) -> tuple:
     those over which a leaf split over ``dims`` is replicated."""
     names = tuple(mesh.mesh_dim_names)
     return tuple(a for a in among if a in names and a not in dims)
+
+
+def flash_merge(pieces, mesh) -> torch.Tensor:
+    """Softmax attention of decode queries over keys that ranks hold in
+    slices (flash-decoding's merge).  Each piece is (scores (..., n)
+    float32, masked with a finite ``NEG_INF``; ``pv``, which takes weights
+    of the scores' shape to their P.V product (..., d); the mesh dims the
+    piece's keys are split over, () where each rank holds them all).
+
+    The max m over every piece's keys on every rank is all-reduced first;
+    then each piece's sum of exp(s - m) and its unnormalised P.V are
+    summed over its dims in one all-reduce (float32), and the products'
+    sum is divided by the sums'.  A rank whose keys are all masked holds
+    ``NEG_INF`` scores that fall below the max another rank's key sets, so
+    it adds exactly 0, not exp(0).  Where no piece is split, the weights
+    are normalised before P.V, as one process's decode computes it, and
+    the result keeps ``pv``'s dtype."""
+    m = None
+    for s, _, dims in pieces:
+        top = s.amax(dim=-1, keepdim=True)
+        if dims:
+            collectives.all_reduce(top, mesh, dims, op=dist.ReduceOp.MAX)
+        m = top if m is None else torch.maximum(m, top)
+    ps = [torch.exp(s - m) for s, _, _ in pieces]
+    if not any(dims for _, _, dims in pieces):
+        total = sum(p.sum(dim=-1, keepdim=True) for p in ps)
+        return sum(pv(p / total) for p, (_, pv, _) in zip(ps, pieces))
+    out = total = 0
+    for p, (_, pv, dims) in zip(ps, pieces):
+        part, o = p.sum(dim=-1, keepdim=True), pv(p).float()
+        if dims:
+            part, o = collectives.all_reduce_many([part, o], mesh, dims)
+        total, out = total + part, out + o
+    return out / total

@@ -147,12 +147,27 @@ def make_prefill_step(cfg: ModelConfig, attn_impl: str = "kernel",
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
-    """One-token decode: (params, caches, token, pos) -> (logits, caches)."""
+def make_serve_step(cfg: ModelConfig, mesh=None) -> Callable:
+    """One-token decode: (params, caches, token, pos) -> (logits, caches).
+    With ``mesh`` (a ``DeviceMesh``) every rank passes the whole token
+    batch, its serving slices of the parameters (``lm.serve_pspecs``) and
+    the caches of ``lm.init_cache(..., mesh=)`` (``lm.decode_step``); the
+    step's placements (``lm.mesh_decoder``) are built once for each cache
+    layout and batch it meets."""
+    plans = {}
 
     @torch.no_grad()
     def serve_step(params: PyTree, caches: PyTree, token: torch.Tensor,
                    pos: int):
-        return lm.decode_step(params, caches, token, pos, cfg)
+        plan = None
+        if mesh is not None:
+            key = (token.shape[0], tuple(
+                (name, tuple(t.shape), t.dtype)
+                for layer in caches for name, t in layer.items()))
+            if key not in plans:
+                plans[key] = lm.mesh_decoder(cfg, mesh, caches, key[0])
+            plan = plans[key]
+        return lm.decode_step(params, caches, token, pos, cfg, mesh=mesh,
+                              plan=plan)
 
     return serve_step
