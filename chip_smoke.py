@@ -166,6 +166,21 @@
    rule and the phase's absolute bounds, float32 within SD_F32_TOL (or
    twice the smaller of two float32 witnesses); ms a step, peak memory
    and weight and cache bytes by rank.
+12. The dry run (``launch/dryrun.py``), in a child process started before
+   the build, beside the card's phases: one rank's step traced on meta
+   tensors over a fake process group, read after phi3_prefill.
+   dryrun_phi3 (phi3-medium-14b x prefill_32k at batch 1 on the (1, 1)
+   mesh, the kernel route): its argument bytes equal phi3_prefill's
+   weights and tokens exactly, its traced flash_attention calls the
+   phase's 40 tc launches, its predicted peak within DRYRUN_PEAK_BOUNDS
+   of the phase's, and the roofline's bound (H100 constants) against
+   the phase's wall; dryrun_train (h2o-danube-3-4b x train_4k at 1 x
+   4,096, lm_train's cell): argument bytes (weights, moments, step,
+   batch) equal lm_train's, peak within its bound; dryrun_production
+   (jamba-1.5-large-398b x train_4k on 16 x 16, rank 0 of 256, and x
+   decode_32k on 2 x 16 x 16, rank 0 of 512): per-device argument, peak
+   and temporary bytes against the card's memory, wire bytes and
+   collective seconds, the roofline row, the trace seconds.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -1805,7 +1820,7 @@ def token_nll(cfg, params, batch, attn_impl: str) -> torch.Tensor:
     logits = lm.lm_logits(params, {"tokens": batch["tokens"]}, cfg,
                           attn_impl=attn_impl)[..., :cfg.vocab_size].float()
     return (torch.logsumexp(logits, -1)
-            - logits.gather(-1, batch["targets"][..., None])[..., 0])
+            - logits.gather(-1, batch["targets"][..., None].long())[..., 0])
 
 
 # The bf16 train step held against float32: step 1 of make_train_step at
@@ -2055,7 +2070,7 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
                           total_steps=steps, state_dtype=cfg.opt_state_dtype)
     ds = TokenDataset(vocab_size=cfg.vocab_size, n_docs=16,
                       doc_len=seq + 64, seed=0)
-    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+    batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=dev)
                 for k, v in ds.batch(0, i, 1, seq).items()}
                for i in range(steps)]
     t0 = time.perf_counter()
@@ -2067,6 +2082,7 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
                            device=dev)
     opt_state = init_opt_state(params, opt)
     torch.cuda.synchronize()
+    arg_bytes = tree_bytes(params, opt_state, batches[0])
     leaves = tree_leaves(params)
     n_params = sum(p.numel() for p in leaves)
     log(f"lm_train init: {cfg.name}, {n_params / 1e9:.3f}B parameters (bf16, "
@@ -2137,6 +2153,7 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
     return {"model": cfg.name, "params": n_params, "batch": 1, "seq": seq,
             "steps": rows, "seconds_per_step": step_s,
             "tokens_s": seq / step_s, "peak_gib": peak,
+            "argument_bytes": arg_bytes,
             "loss_check": {"kernel": loss_kernel, "plain": loss_plain,
                            "step1": rows[0]["loss"],
                            "mean_abs_kernel_vs_plain": d_kernel,
@@ -2411,7 +2428,7 @@ def run_moe_train(dev, cfg, seq: int, steps: int, profile) -> dict:
                           total_steps=steps, state_dtype=cut.opt_state_dtype)
     ds = TokenDataset(vocab_size=cut.vocab_size, n_docs=16,
                       doc_len=seq + 64, seed=1)
-    batches = [{k: torch.as_tensor(v, dtype=torch.long, device=dev)
+    batches = [{k: torch.as_tensor(v, dtype=torch.int32, device=dev)
                 for k, v in ds.batch(0, i, 1, seq).items()}
                for i in range(steps)]
     torch.cuda.reset_peak_memory_stats()
@@ -3015,8 +3032,9 @@ def run_phi3(dev, prefill_len: int, compare_len: int, profile) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     prefill = make_prefill_step(cfg)
     tokens = torch.randint(0, cfg.vocab_size, (1, prefill_len), device=dev,
-                           generator=g)
-    out = {"model": cfg.name, "tokens": prefill_len}
+                           generator=g, dtype=torch.int32)
+    out = {"model": cfg.name, "tokens": prefill_len,
+           "argument_bytes": tree_bytes(params, tokens)}
     # the kernel route against the plain route (also warms cuBLAS and the
     # kernel up)
     out["compare"] = compare_routes(
@@ -4287,8 +4305,8 @@ def run_tensor_parallel(opts: dict) -> dict:
 SD_RANKS = 4
 SD_STEPS = 16                  # decode steps of a seeded token stream
 SD_F32_TOL = 1e-4              # float32 logits and caches at SD_F32_DEPTH
-SD_F32_DEPTH = 8               # layers of the float32 runs (phi3, danube)
-SD_SEAMLESS_F32_DEPTH = 6      # encoder and decoder layers, float32 run
+SD_F32_DEPTH = 4               # layers of the float32 runs (phi3, danube)
+SD_SEAMLESS_F32_DEPTH = 3      # encoder and decoder layers, float32 run
 @dataclasses.dataclass(frozen=True)
 class SdPhase:
     """One decode-over-sharded-caches phase: its config, mesh, batch, cache
@@ -4886,6 +4904,180 @@ def run_sharded_decode(opts: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The dry run (launch/dryrun.py, launch/roofline.py): host-side traces of
+# one rank's step on meta tensors over a fake process group, held against
+# the phases that run the same cells on the card.  They run in a child
+# process of their own (a dry run owns its process's default group, and
+# needs no card) from the start of the run, beside the card's phases.
+# ---------------------------------------------------------------------------
+
+#: name -> launch.dryrun.run_cell's keywords
+DRYRUN_CELLS = {
+    "dryrun_phi3": dict(arch="phi3-medium-14b", shape_name="prefill_32k",
+                        mesh_kind="host", batch=1, attn_impl="kernel"),
+    "dryrun_train": dict(arch="h2o-danube-3-4b", shape_name="train_4k",
+                         mesh_kind="host", batch=1),
+    "dryrun_production_decode": dict(arch="jamba-1.5-large-398b",
+                                     shape_name="decode_32k",
+                                     mesh_kind="multi"),
+    "dryrun_production_train": dict(arch="jamba-1.5-large-398b",
+                                    shape_name="train_4k",
+                                    mesh_kind="single"),
+}
+#: predicted peak over the phase's measured peak (PERF.md §6, written
+#: before the first card run): the trace allocates the tensors the card's
+#: run allocates, less the caching allocator's rounding and workspaces
+DRYRUN_PEAK_BOUNDS = {"dryrun_phi3": (0.9, 1.1), "dryrun_train": (0.85, 1.15)}
+DRYRUN_DEADLINE_S = 900
+
+
+def dryrun_worker(out_path: str) -> None:
+    """Runs every cell of DRYRUN_CELLS in turn, writing the results (each
+    with its wall seconds) to ``out_path`` after each."""
+    from repro_torch.launch import dryrun
+    os.nice(19)         # the host's cores go to the card's phases first
+    out = {}
+    for name, kw in DRYRUN_CELLS.items():
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(**kw)
+        r["seconds"] = time.perf_counter() - t0
+        out[name] = r
+        pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def start_dryruns() -> dict:
+    """Starts :func:`dryrun_worker` in a child process with no card; it is
+    killed at exit if it still runs."""
+    import atexit
+    import tempfile
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": str(ROOT / "src")}
+    err = open(tmp / "err.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.dryrun_worker(sys.argv[2])",
+         str(ROOT), str(tmp / "out.json")], cwd=ROOT, env=env,
+        stdout=err, stderr=subprocess.STDOUT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "dir": tmp, "t0": time.perf_counter(), "err": err}
+
+
+def tree_bytes(*trees) -> int:
+    """Bytes of every tensor leaf of ``trees``."""
+    from repro_torch.models.common import tree_leaves
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def finish_dryruns(handle: dict, phi3: dict, lm_train: dict) -> dict:
+    """Waits for the dry runs and holds them against the card's phases:
+    dryrun_phi3 (phi3_prefill's arguments, launches and peak, and its wall
+    against the roofline's bound), dryrun_train (lm_train's arguments and
+    peak), dryrun_production (jamba-1.5-large-398b x train_4k on 16 x 16,
+    rank 0 of 256, and x decode_32k on 2 x 16 x 16, rank 0 of 512)."""
+    import shutil
+
+    from repro_torch.configs import SHAPE_BY_NAME
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import LINK_BW
+
+    proc = handle["proc"]
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_DEADLINE_S - (
+            time.perf_counter() - handle["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    handle["err"].close()
+    tail = (handle["dir"] / "err.txt").read_text()[-3000:]
+    out_path = handle["dir"] / "out.json"
+    got = json.loads(out_path.read_text()) if out_path.exists() else {}
+    shutil.rmtree(handle["dir"], ignore_errors=True)
+    cells = ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in got.items())
+    log(f"dry runs: exit {proc.returncode} after "
+        f"{time.perf_counter() - handle['t0']:.1f} s beside the card's "
+        f"phases (cells {cells})")
+    assert proc.returncode == 0 and set(got) == set(DRYRUN_CELLS), tail
+    for name, r in got.items():
+        assert r["status"] == "ok", (name, r)
+    card = torch.cuda.get_device_properties(0).total_memory
+
+    def row(name, seconds=None):
+        kw = DRYRUN_CELLS[name]
+        base = SHAPE_BY_NAME[kw["shape_name"]]
+        shape = ShapeConfig(base.name, base.seq_len,
+                            kw.get("batch") or base.global_batch, base.kind)
+        r = roofline.roofline_row(got[name], None, kw["arch"], shape,
+                                  kw["mesh_kind"])
+        r["bound_s"] = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        if seconds:
+            r["measured_s"] = seconds
+            r["fraction_of_roofline"] = r["bound_s"] / seconds
+        return r
+
+    out = {}
+    for name, phase, want_launches in (
+            ("dryrun_phi3", phi3, {"flash_attention": {
+                "tc": phi3["launches"]}}),
+            ("dryrun_train", lm_train, {})):
+        r = got[name]
+        ratio = r["peak_memory_bytes"] / (phase["peak_gib"] * 2 ** 30)
+        lo, hi = DRYRUN_PEAK_BOUNDS[name]
+        seconds = phase.get("seconds_per_step") or phase["seconds"]
+        rr = row(name, seconds)
+        log(f"phase {name}: traced in {r['trace_s']:.2f} s; argument bytes "
+            f"{r['argument_bytes']} (the phase passes "
+            f"{phase['argument_bytes']}), flash launches "
+            f"{r['kernel_launches']} (the phase {want_launches}), peak "
+            f"{r['peak_memory_bytes'] / 2**30:.3f} GiB predicted against "
+            f"{phase['peak_gib']:.3f} GiB measured (ratio {ratio:.4f}, held "
+            f"to [{lo}, {hi}]); flops {r['flops_per_device']:.4e} traced, "
+            f"{rr['analytic_flops_global']:.4e} analytic; roofline bound "
+            f"{rr['bound_s']:.4f} s ({rr['dominant']}) against "
+            f"{seconds:.4f} s measured: {100 * rr['fraction_of_roofline']:.1f}"
+            f"% of the roofline")
+        assert r["argument_bytes"] == phase["argument_bytes"], \
+            (name, r["argument_bytes"], phase["argument_bytes"])
+        assert r["kernel_launches"] == want_launches, \
+            (name, r["kernel_launches"])
+        assert lo <= ratio <= hi, (name, ratio)
+        out[name] = {"peak_ratio": ratio, "roofline": rr,
+                     **{k: r[k] for k in (
+                         "trace_s", "seconds", "argument_bytes",
+                         "peak_memory_bytes", "temp_bytes",
+                         "flops_per_device", "bytes_accessed_per_device",
+                         "kernel_launches")}}
+    prod = {}
+    for name in ("dryrun_production_train", "dryrun_production_decode"):
+        r, rr = got[name], row(name)
+        log(f"phase {name}: {r['arch']} x {r['shape']} on {r['mesh']}, rank "
+            f"{r['rank']} of {r['n_devices']}: traced in {r['trace_s']:.2f} "
+            f"s; a device: arguments {r['argument_bytes'] / 1e9:.3f} GB, "
+            f"peak {r['peak_memory_bytes'] / 1e9:.3f} GB, temporaries "
+            f"{r['temp_bytes'] / 1e9:.3f} GB against the card's "
+            f"{card / 1e9:.1f} GB; wire {r['wire_bytes_per_device']:.4e} "
+            f"bytes ({r['collective_op_counts']}), collective_s "
+            f"{r['wire_bytes_per_device'] / LINK_BW:.4f} at "
+            f"{LINK_BW:.3g} B/s; roofline compute {rr['compute_s']:.4f} s, "
+            f"memory {rr['memory_s']:.4f} s, collective "
+            f"{rr['collective_s']:.4f} s, {rr['dominant']}-bound, "
+            f"{100 * rr['roofline_fraction']:.2f}% of the roofline")
+        assert r["flops_per_device"] > 0 and r["wire_bytes_per_device"] > 0
+        assert r["argument_bytes"] > 0 and r["peak_memory_bytes"] > 0
+        prod[name] = {"roofline": rr, "card_bytes": card, **{
+            k: r[k] for k in ("trace_s", "seconds", "argument_bytes",
+                              "peak_memory_bytes", "temp_bytes",
+                              "output_bytes", "flops_per_device",
+                              "bytes_accessed_per_device",
+                              "wire_bytes_per_device",
+                              "collective_op_counts")}}
+    out["dryrun_production"] = prod
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=1_000_000)
@@ -4918,6 +5110,7 @@ def main(argv=None) -> None:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
+    dry = start_dryruns()
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -5168,6 +5361,7 @@ def main(argv=None) -> None:
                   "lm_decode_ring": lm_out["decode_ring"]["launches"]}
     launches["flash_attention"] += sum(phi3_flash.values())
     free_card()
+    dry_out = finish_dryruns(dry, phi3, lm_train)
 
     # the mesh layer, after the card has been freed: no kernel of its own
     from repro_torch.configs import get_config
@@ -5274,6 +5468,7 @@ def main(argv=None) -> None:
     log("vlm paths: " + json.dumps(vlm))
     log("seamless paths: " + json.dumps(seamless))
     log("phi3 paths: " + json.dumps(phi3))
+    log("dry-run paths: " + json.dumps(dry_out))
     log("parallel paths: " + json.dumps(parallel))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,3 +26,12 @@ def as_device_tensor(a, device: Optional[torch.device]) -> torch.Tensor:
     if t.dtype not in (torch.float32, torch.float16, torch.bfloat16):
         t = t.to(torch.float32)
     return t
+
+
+def is_traced(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds no data: a fake tensor (``FakeTensorMode``) or a
+    tensor on the ``meta`` device, as the dry run (``launch.dryrun``)
+    traces a step on.  Code that reads a value on the host takes a
+    shape-only stand-in for such a tensor."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.device.type == "meta" or is_fake(t)

@@ -22,7 +22,8 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from contextlib import contextmanager
+from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +33,8 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
+#: the open traces of :func:`trace_kernels`
+_traces: List[list] = []
 
 
 def build_dir() -> pathlib.Path:
@@ -156,6 +159,30 @@ def count_launch(wrapper, path=None) -> None:
         wrapper.launches += 1
         if path is not None:
             wrapper.launches_by_path[path] += 1
+
+
+@contextmanager
+def trace_kernels():
+    """While open, every kernel call that a wrapper takes on tensors with
+    no data (``device.is_traced``: the dry run's fake tensors) appends
+    ``(kernel, path, flops, bytes)`` to the list it yields; such a call
+    launches nothing and adds nothing to the wrapper's launch count."""
+    rec: list = []
+    with _count_lock:
+        _traces.append(rec)
+    try:
+        yield rec
+    finally:
+        with _count_lock:
+            _traces.remove(rec)
+
+
+def count_traced(wrapper, path: str, flops: float, nbytes: int) -> None:
+    """Record a traced call of ``wrapper``'s kernel on ``path`` in every
+    open :func:`trace_kernels`."""
+    with _count_lock:
+        for rec in _traces:
+            rec.append((wrapper.__name__, path, float(flops), int(nbytes)))
 
 
 def refuse_grad(name: str, *tensors) -> None:

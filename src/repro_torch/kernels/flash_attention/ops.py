@@ -13,13 +13,23 @@ shape and dtype alone by :func:`flash_route`:
 - ``"tc"``: bf16 with hd % 8 == 0 (the LM prefill): tensor cores (wgmma)
   fed by TMA;
 - ``"simt"``: everything else (float32 included, which stays exact).
+
+A CUDA tensor reaches the kernel through the custom op
+``torch.ops.repro_torch.flash_attention``; so does a tensor with no data
+(``device.is_traced``: the dry run's fake tensors, ``launch.dryrun``), for
+which the op's fake implementation returns an output of q's shape and dtype,
+launches nothing, and records the call on its path with its flops and bytes
+(``_build.count_traced``); ``torch.utils.flop_counter`` counts the same
+flops (:func:`traced_flops`).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.device import is_traced
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -64,13 +74,48 @@ def flash_route(q: torch.Tensor, k: torch.Tensor) -> str:
     return "simt"
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int) -> torch.Tensor:
-    _build.refuse_grad("flash_attention", q, k, v)
+def _check_dtypes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32/bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+
+
+def traced_flops(q_shape, k_shape, causal: bool, window: int) -> float:
+    """The kernel's flops on q (B,S,H,hd) against k (B,Skv,Hk,hd): 4 * hd
+    per (query, key) pair of ``analytic.attention_pairs``, the rule of the
+    analytic model's attention term."""
+    from repro_torch.launch.analytic import attention_pairs
+    b, s, h, hd = q_shape
+    return 4.0 * b * h * hd * attention_pairs(s, k_shape[1], causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int) -> torch.Tensor:
+    return _launch(q, k, v, causal, window)
+
+
+@_flash_op.register_fake
+def _flash_traced(q, k, v, causal, window):
+    _check_dtypes(q, k, v)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    _build.count_traced(flash_attention, flash_route(q, k),
+                        traced_flops(q.shape, k.shape, causal, window),
+                        nbytes)
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                 out_shape=None, **kwargs) -> int:
+    return int(traced_flops(q_shape, k_shape, causal, window))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    _check_dtypes(q, k, v)
     b, s, h, hd = q.shape
     skv, hk = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:
@@ -111,8 +156,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type == "cuda":
-        return _launch(q, k, v, causal, window)
+    if q.device.type == "cuda" or is_traced(q):
+        _build.refuse_grad("flash_attention", q, k, v)
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
     raise ValueError(f"no flash_attention for device {q.device}")
 
 

@@ -140,11 +140,26 @@ def _layer(cfg: ModelConfig, spec: LayerSpec, tokens: float, s_kv: float,
     return c
 
 
-def _s_kv_eff(cfg: ModelConfig, s: float, causal: bool = True) -> float:
-    eff = (s + 1) / 2 if causal else s
-    if cfg.sliding_window:
-        eff = min(eff, cfg.sliding_window)
+def keys_per_query(skv: float, causal: bool = True, window=0) -> float:
+    """The keys the model counts for each query over ``skv`` keys: half of
+    them (plus one half) when causal, all otherwise, at most ``window``."""
+    eff = (skv + 1) / 2 if causal else skv
+    if window:
+        eff = min(eff, window)
     return eff
+
+
+def attention_pairs(s: float, skv: float, causal: bool = True,
+                    window=0) -> float:
+    """(query, key) pairs of one (batch, head) as the model counts them:
+    ``s`` queries times :func:`keys_per_query`.  A kernel's work on q
+    (B, S, H, hd) is ``4 * B * H * hd * attention_pairs(S, Skv, ...)``
+    flops, the scores and P.V terms of :func:`_attention`."""
+    return s * keys_per_query(skv, causal, window)
+
+
+def _s_kv_eff(cfg: ModelConfig, s: float, causal: bool = True) -> float:
+    return keys_per_query(s, causal, cfg.sliding_window)
 
 
 def forward_cost(cfg: ModelConfig, batch: int, seq: int) -> Cost:

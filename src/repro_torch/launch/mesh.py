@@ -1,9 +1,8 @@
 """Meshes of ranks, as ``repro.launch.mesh`` makes them: a named
 ``torch.distributed`` ``DeviceMesh`` of a given shape over the first ranks
-of the default process group.
-
-The production meshes (256 and 512 devices) and the roofline constants of
-the JAX package's module belong to the dry-run tooling (ROADMAP A6d).
+of the default process group, the production meshes (16 x 16 and
+2 x 16 x 16) among them, and the hardware constants of the roofline
+(``launch.roofline``): one H100 SXM5 80 GB at its 700 W power limit.
 """
 from __future__ import annotations
 
@@ -33,6 +32,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
                       mesh_dim_names=tuple(axes))
 
 
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The single-pod (16, 16) ``("data", "model")`` mesh, or the multi-pod
+    (2, 16, 16) ``("pod", "data", "model")`` one, over ranks 0..n-1 of the
+    default group (256 or 512 ranks: the dry run's fake group,
+    ``launch.dryrun``, or a real one)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device_type)
+
+
 def make_host_mesh(device_type: str = "cuda"):
     """A (1, 1) ``("data", "model")`` mesh over this process alone (the
     same dim names as the single-pod mesh).  Without a process group it
@@ -46,3 +56,13 @@ def make_host_mesh(device_type: str = "cuda"):
         raise ValueError("make_host_mesh is a mesh of one process; the "
                          f"group has {dist.get_world_size()} ranks")
     return make_mesh((1, 1), ("data", "model"), device_type)
+
+
+# Hardware constants of the roofline: one H100 SXM5 80 GB at its 700 W
+# power limit.  Every axis of the production meshes (16, 16 and 2 ranks)
+# spans nodes of 8 GPUs, so each collective is bound by the inter-node
+# link, InfiniBand NDR at 400 Gb/s a GPU and direction, not by NVLink.
+PEAK_FLOPS_BF16 = 989.4e12    # dense bf16 tensor-core FLOP/s per GPU
+HBM_BW = 3.35e12              # HBM3 bytes/s per GPU
+LINK_BW = 50e9                # bytes/s per GPU and direction (NDR 400 Gb/s)
+CHIPS_PER_POD = 256

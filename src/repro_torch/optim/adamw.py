@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.device import is_traced
 from repro_torch.models.common import (DTYPES, PyTree, spec_map, tree_leaves,
                                        tree_unflatten_like)
 from repro_torch.parallel import collectives
@@ -112,6 +113,12 @@ def global_norm(tree: PyTree, mesh=None, split=None) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _host_float(t: torch.Tensor) -> float:
+    """``float(t)``; 1.0 for a tensor with no data (the dry run's fake
+    step count), whose trace needs the step's shapes only."""
+    return 1.0 if is_traced(t) else float(t)
+
+
 @torch.no_grad()
 def adamw_update(params: PyTree, grads: PyTree, state: Dict,
                  opt: OptimizerConfig, mesh=None, split=None,
@@ -132,9 +139,9 @@ def adamw_update(params: PyTree, grads: PyTree, state: Dict,
     scale = (torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
              if opt.clip_norm else torch.ones((), device=gnorm.device))
     f32 = torch.float32
-    bc1 = float(1 - torch.tensor(opt.b1, dtype=f32) ** step)
-    bc2 = float(1 - torch.tensor(opt.b2, dtype=f32) ** step)
-    lr_f = float(lr)
+    bc1, bc2, lr_f = (_host_float(x) for x in (
+        1 - torch.tensor(opt.b1, dtype=f32) ** step,
+        1 - torch.tensor(opt.b2, dtype=f32) ** step, lr))
     flat = [tree_leaves(t) for t in (params, grads, state["mu"], state["nu"])]
     if len({len(f) for f in flat}) != 1:
         raise ValueError(f"params, grads and moments hold {[len(f) for f in flat]} "

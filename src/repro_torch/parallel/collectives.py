@@ -16,6 +16,12 @@ A collective over several mesh dims runs over each dim's own group in
 turn: a sum or max of sums or maxes, a gather of gathers (the last dim
 first, so the result is row-major over the dims, the first outermost) and
 a scatter of scatters (the first dim first, its inverse).
+
+Each call records what it moves, ``(op, result bytes, group size)`` by the
+names of XLA's collectives, in every recording that
+``launch.wire.count_collectives`` holds open; a group of one rank moves
+nothing and records nothing.  Recording changes no result, on a real group
+or on the dry run's fake one.
 """
 from __future__ import annotations
 
@@ -26,6 +32,18 @@ import torch.distributed as dist
 
 #: the collectives a gloo group takes CUDA tensors for
 _GLOO_CUDA_OPS = frozenset({"all_reduce", "broadcast", "all_gather"})
+#: the open recordings (``launch.wire.count_collectives``)
+_recordings: List[list] = []
+
+
+def _record(op: str, t: torch.Tensor, group) -> None:
+    """``op`` with result ``t`` over ``group``, in every open recording."""
+    if not _recordings:
+        return
+    g = dist.get_world_size(group)
+    if g > 1:
+        for rec in _recordings:
+            rec.append((op, t.numel() * t.element_size(), g))
 
 
 def _size(mesh, dim: str) -> int:
@@ -61,7 +79,9 @@ def all_reduce(t: torch.Tensor, mesh, dims: Sequence[str],
     every dim but ``dims``, in place; returns ``t``.  Exact for integer
     sums and for max."""
     for d in dims:
-        dist.all_reduce(t, op=op, group=mesh.get_group(d))
+        group = mesh.get_group(d)
+        _record("all-reduce", t, group)
+        dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -89,6 +109,7 @@ def all_gather_cat(t: torch.Tensor, mesh, dims: Sequence[str],
         parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=group)
         t = torch.cat(parts, dim=dim)
+        _record("all-gather", t, group)
     return t
 
 
@@ -108,12 +129,14 @@ def reduce_scatter(t: torch.Tensor, mesh, dims: Sequence[str],
         parts = [c.contiguous() for c in t.chunk(n, dim)]
         t = torch.empty_like(parts[0])
         dist.reduce_scatter(t, parts, group=group)
+        _record("reduce-scatter", t, group)
     return t.contiguous()
 
 
 def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """``t`` from global rank ``src`` to every rank of ``group``, in
     place; returns ``t``."""
+    _record("broadcast", t, group)
     dist.broadcast(t, src=src, group=group)
     return t
 
@@ -121,6 +144,7 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
 def send(t: torch.Tensor, dst: int, group) -> None:
     """``t`` to global rank ``dst`` (blocking)."""
     src = t.contiguous()
+    _record("collective-permute", src, group)
     if _staged("send", group, src):
         src = src.cpu()
     dist.send(src, dst=dst, group=group)
@@ -129,6 +153,7 @@ def send(t: torch.Tensor, dst: int, group) -> None:
 def recv(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """Fills ``t`` (contiguous) from global rank ``src`` (blocking);
     returns ``t``."""
+    _record("collective-permute", t, group)
     if _staged("recv", group, t):
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         dist.recv(host, src=src, group=group)

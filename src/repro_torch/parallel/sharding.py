@@ -398,6 +398,16 @@ def cache_slices(cache_specs: PyTree, cfg: ModelConfig, mesh,
     return tuple(out)
 
 
+def contiguous_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, allocating nothing
+    (not even a meta tensor, which a dry run would count)."""
+    strides, step = [], 1
+    for n in reversed(tuple(shape)):
+        strides.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(strides))
+
+
 def from_local(local: torch.Tensor, sharding: NamedSharding, shape):
     """A DTensor of the full ``shape`` whose slice on this rank (by
     ``sharding``) is ``local``: no collective."""
@@ -405,8 +415,7 @@ def from_local(local: torch.Tensor, sharding: NamedSharding, shape):
     shape = torch.Size(shape)
     return DTensor.from_local(local, sharding.mesh, sharding.placements,
                               run_check=False, shape=shape,
-                              stride=torch.empty(shape,
-                                                 device="meta").stride())
+                              stride=contiguous_strides(shape))
 
 
 def shard_tensor(t: torch.Tensor, sharding: NamedSharding):
@@ -507,4 +516,4 @@ class BatchLayout:
             local, self.mesh, NamedSharding(self.mesh, spec).placements,
             run_check=False,
             shape=torch.Size(full_shape),
-            stride=torch.empty(full_shape, device="meta").stride())
+            stride=contiguous_strides(full_shape))

@@ -16,7 +16,8 @@ pytestmark = pytest.mark.tier1
 
 CELLS = [(arch, shape.name, 0) for arch in sorted(JAX_REGISTRY)
          for shape in JAX_SHAPES]
-# the two-tier decode cache, at launch/roofline.py's default ring of 256
+# the two-tier decode cache, at repro_torch/launch/roofline.py's default
+# ring of 256
 RING_CELLS = [("phi3-medium-14b", "decode_32k", 256),
               ("h2o-danube-3-4b", "decode_32k", 256),
               ("h2o-danube-3-4b", "long_500k", 256)]

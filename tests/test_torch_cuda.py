@@ -695,3 +695,26 @@ def test_dus_decode_on_the_card_equals_masked(cuda):
     assert l1.dtype == torch.bfloat16 and torch.equal(l1, l0)
     for a, b in zip(c0, c1):
         assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_flash_attention_real_cuda_tensor_launches_beside_traced_path(cuda):
+    """Through the custom op a real CUDA tensor still launches the kernel
+    (one launch on its path, no traced call), while the same call on fake
+    CUDA tensors (``FakeTensorMode``, the dry run's) launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import flash_route
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(1, 256, 4, 64, device=cuda, generator=g).bfloat16()
+    before = flash_attention.launches
+    with _build.trace_kernels() as traced:
+        got = flash_attention(q, q, q, causal=True)
+        torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and traced == []
+    _assert_attention_close(got, q, q, q, True, 0, flash_route(q, q))
+    with FakeTensorMode(), _build.trace_kernels() as traced:
+        fq = torch.empty(1, 256, 4, 64, dtype=torch.bfloat16, device=cuda)
+        out = flash_attention(fq, fq, fq, causal=True)
+    assert out.shape == fq.shape and flash_attention.launches == before + 1
+    assert [t[1] for t in traced] == ["tc"]

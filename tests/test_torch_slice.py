@@ -304,6 +304,15 @@ assert deq.dtype == torch.float32 and float(err.abs().max()) <= 1.0 / 254
 class _Mesh:  # the shape of the 16x16 production mesh, no devices
     shape, axis_names = {"data": 16, "model": 16}, ("data", "model")
 assert sharding.batch_pspec(_Mesh, 256) == ("data", None)
+# the dry-run and roofline tooling: one small cell traced on a fake group
+import repro_torch.launch.run_all_dryruns
+from repro_torch.launch import dryrun, mesh, roofline, specs, wire
+assert mesh.PEAK_FLOPS_BF16 == 989.4e12 and wire.wire_bytes("all-reduce", 8, 2) == 8.0
+r = dryrun.run_cell("llama3.2-1b", "decode_32k", "host", batch=1,
+                    overrides={"n_layers": "1", "d_model": "64",
+                               "n_heads": "2", "n_kv_heads": "1",
+                               "d_ff": "128", "vocab_size": "256"})
+assert r["status"] == "ok" and r["argument_bytes"] > 0, r
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
