@@ -140,6 +140,12 @@
    mesh, 8,192 tokens, 2.5 KV heads a rank, every attention call through
    the kernel's tc path on the rank's whole GQA groups; held to the
    one-process kernel route in bf16 and, at 8 layers, in float32),
+   serve_fsdp_prefill (the same model on a (2, 2) mesh, two replicas of
+   two-way tensor parallelism, a batch of 2 x 4,096 tokens, a prompt a
+   data rank: each rank holds its ``lm.serve_pspecs`` slices, which the
+   shipped budget splits over data too (fsdp), about a quarter of the
+   weights, gathered a block at a time; held as megatron_prefill, its
+   rank-0 weight bytes, launches and collectives against the dry run's),
    ep_prefill (olmoe-1b-7b on a (1, 4) mesh under megatron and ep_seq, 16
    experts a rank; drops with the one-process routing pinned equal to
    the one-process forward's) and megatron_train (one step of
@@ -180,7 +186,11 @@
    (jamba-1.5-large-398b x train_4k on 16 x 16, rank 0 of 256, and x
    decode_32k on 2 x 16 x 16, rank 0 of 512): per-device argument, peak
    and temporary bytes against the card's memory, wire bytes and
-   collective seconds, the roofline row, the trace seconds.
+   collective seconds, the roofline row, the trace seconds;
+   dryrun_serve_fsdp_prefill (phi3-medium-14b's prefill at 2 x 4,096 as
+   rank 0 of a (2, 2) mesh, read after serve_fsdp_prefill): its weight
+   bytes, traced launches and collectives equal rank 0's there, its peak
+   beside the measured one.
 
 Each path's kernel launches are counted from 0 just before it runs.  Prints
 per-phase seconds, a JSON line of per-kernel numbers, and as its last line
@@ -3660,17 +3670,19 @@ def run_parallel(opts: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 # Compute on sharded weights (parallel/tensor_parallel.py): megatron_prefill,
-# ep_prefill and megatron_train in TP_RANKS spawned processes sharing the
-# one card over gloo, each rank holding only its slices of the weights (and
-# moments), drawn slice by slice as init_model draws the whole leaves
-# (init_local).  The one-process references run on rank 0 before any rank
-# holds its shards.  Each rank's logits are its columns of the vocabulary;
-# the checks gather them over gloo, as DTensor.full_tensor() is not used on
-# CUDA tensors over gloo (above).  Before them, gloo_probe: whether gloo
+# serve_fsdp_prefill, ep_prefill and megatron_train in TP_RANKS spawned
+# processes sharing the one card over gloo, each rank holding only its
+# slices of the weights (and moments), drawn slice by slice as init_model
+# draws the whole leaves (init_local).  The one-process references run on
+# rank 0 before any rank holds its shards.  Each rank's logits are its
+# columns of the vocabulary; the checks gather them over gloo, as
+# DTensor.full_tensor() is not used on CUDA tensors over gloo (above).  Before them, gloo_probe: whether gloo
 # takes CUDA tensors for reduce_scatter, in a pair of processes of its own.
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 4
+TP_SERVE_MESH = (2, 2)         # serve_fsdp_prefill: 2 replicas of TP 2
+TP_SERVE_ROWS, TP_SERVE_LEN = 2, 4096   # a prompt a data rank
 TP_SHARE_SLACK = 0.01          # a rank's weight bytes: 1/4 of the whole +-
 TP_F32_DEPTH, TP_F32_TOL = 8, 1e-4
 TP_TRAIN_BATCH = 2             # over data 2 of the (2, 2) mesh
@@ -3749,39 +3761,66 @@ def _tp_flash_counts():
     return flash_attention.launches, dict(flash_attention.launches_by_path)
 
 
-def _tp_megatron_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
-    """megatron_prefill: ``make_prefill_step(cfg, mesh=)`` under megatron
-    on a (1, world) mesh, each rank holding its slices of every leaf (a
-    quarter of the heads, KV heads split mid-head where they do not divide,
-    the MLP width and the vocabulary), attention through the kernel on its
-    whole GQA groups.  Held in bf16 to the one-process kernel route by
-    compare_routes' rule (WITNESS_RATIO) with the one-process plain route
-    against the kernel route as the witness (on the card: on the CPU the
-    kernel route is the plain one) and the BF16_LOGITS_MEAN backstop, and
-    in float32 at TP_F32_DEPTH layers within TP_F32_TOL."""
-    import dataclasses
-
+def _tp_prefill(dev, cfg, rank: int, world: int, mesh_shape: tuple,
+                rows: int, seq: int) -> dict:
+    """A prefill through ``make_prefill_step(cfg, mesh=)`` under megatron
+    on a ("data", "model") mesh of ``mesh_shape``, a batch of ``rows``
+    seeded prompts of ``seq`` tokens (over ``data``), each rank holding its
+    serving slices (``lm.serve_pspecs``) of every leaf: a share of the
+    heads (KV heads split mid-head where they do not divide), the MLP
+    width and the vocabulary over ``model``, and where ``serve_needs_fsdp``
+    holds the width over ``data`` too, gathered a block at a time.
+    Attention goes through the kernel on the rank's whole GQA groups.
+    Held in bf16 to the one-process kernel route by compare_routes' rule
+    (WITNESS_RATIO) with the one-process plain route against the kernel
+    route as the witness (on the card: on the CPU the kernel route is the
+    plain one) and the BF16_LOGITS_MEAN backstop, and in float32 at
+    TP_F32_DEPTH layers within TP_F32_TOL.  The run's collectives are
+    recorded (``launch.wire``): the all-gathers are fsdp's."""
     import torch.distributed as dist
 
     from repro_torch.kernels.flash_attention.ops import reset_launches
+    from repro_torch.launch import wire
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm
     from repro_torch.models.common import tree_map
     from repro_torch.parallel import collectives
+    from repro_torch.parallel import sharding as shd
     from repro_torch.train.steps import make_prefill_step
-    mesh = make_mesh((1, world), ("data", "model"), dev.type)
+    mesh = make_mesh(mesh_shape, ("data", "model"), dev.type)
     cfg = dataclasses.replace(cfg, shard_strategy="megatron")
     step = make_prefill_step(cfg, mesh=mesh)
     g = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab_size, (1, seq), device=dev,
+    tokens = torch.randint(0, cfg.vocab_size, (rows, seq), device=dev,
                            generator=g)
     batch = {"tokens": tokens}
     v = cfg.vocab_size
-    out = {"model": cfg.name, "ranks": world, "tokens": seq}
+    out = {"model": cfg.name, "ranks": world, "mesh": list(mesh_shape),
+           "batch": [rows, seq], "tokens": rows * seq,
+           "serve_needs_fsdp": shd.serve_needs_fsdp(cfg, mesh)}
+    every_dim = ("data", "model")
 
     def agree(a, b):
         return dict(zip(("max_abs", "mean_abs", "top1"),
                         logits_agreement(a, b, v)))
+
+    def whole(local):
+        """Every rank's logits (its rows, its vocabulary columns) put
+        together on rank 0 (None on the others): the vocabulary gathered
+        over ``model``, then each other data rank's rows sent to rank 0 by
+        its first ``model`` rank (a gather over ``data`` would hold the
+        whole batch's logits on every rank: four ranks' float32 copies
+        do not fit beside their weights)."""
+        rows = _tp_vocab_gather(local, mesh)
+        data, model = mesh.get_coordinate()
+        if rank == 0:
+            return torch.cat([rows] + [
+                collectives.recv(torch.empty_like(rows),
+                                 int(mesh.mesh[d, 0]), None)
+                for d in range(1, mesh_shape[0])])
+        if model == 0:
+            collectives.send(rows, 0, None)
+        return None
 
     def cut(p):
         return dict(p, blocks=tree_map(lambda a: a[:TP_F32_DEPTH],
@@ -3803,34 +3842,41 @@ def _tp_megatron_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
         _free(dev)
     dist.barrier()
 
-    params = init_local(cfg, mesh, 1, dev)
+    params = init_local(cfg, mesh, 1, dev, pspecs=lm.serve_pspecs(cfg, mesh))
     local_bytes = _tp_bytes(params)
     _free(dev)
     _reset_peak(dev)
     reset_launches()
     dist.barrier()
-    t0 = time.perf_counter()         # one run, timed and held
-    logits = step(params, batch).to_local()
-    _sync(dev)
-    seconds = time.perf_counter() - t0
+    with wire.count_collectives() as coll:
+        t0 = time.perf_counter()         # one run, timed and held
+        logits = step(params, batch).to_local()
+        _sync(dev)
+        seconds = time.perf_counter() - t0
     launches, paths = _tp_flash_counts()
     peak = _peak(dev)
     finite = bool(torch.isfinite(logits).all())
     shape = list(logits.shape)
-    got = _tp_vocab_gather(logits, mesh)
+    got = whole(logits)
     if rank == 0:
         out["bf16_vs_one_process"] = agree(got, ref)
+        summary = coll.summary()
+        out["wire_bytes_rank0"] = summary["wire_bytes_per_device"]
+        out["collective_op_counts_rank0"] = summary["op_counts"]
+        out["gather_bytes_rank0"] = sum(
+            wire.wire_bytes(op, n, size) for op, n, size in coll.records
+            if op == "all-gather")
     del logits, got, ref
     _free(dev)
     stats = torch.tensor([seconds, peak, float(finite), local_bytes,
                           launches, paths["tc"]], device=dev,
                          dtype=torch.float64)
-    every = collectives.all_gather_cat(stats[None], mesh, ("model",),
+    every = collectives.all_gather_cat(stats[None], mesh, every_dim,
                                        0).cpu()
     p32 = tree_map(lambda a: a.float(), cut(params))
     del params
     _free(dev)
-    got = _tp_vocab_gather(step(p32, batch).to_local(), mesh)
+    got = whole(step(p32, batch).to_local())
     if rank == 0:
         out["f32_vs_one_process"] = agree(got, ref32)
         out["f32_depth"] = TP_F32_DEPTH
@@ -3844,7 +3890,7 @@ def _tp_megatron_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
                launches_by_rank=[int(n) for n in every[:, 4]],
                tc_by_rank=[int(n) for n in every[:, 5]],
                local_logits_shape=shape)
-    out["tokens_s"] = seq / out["seconds"]
+    out["tokens_s"] = out["tokens"] / out["seconds"]
     dist.barrier()
     return out
 
@@ -4129,11 +4175,27 @@ def tp_worker(rank: int, world: int, store: str, out_dir: str,
                                       param_dtype="bfloat16")
         return cfg
 
+    def serve_fsdp_prefill():
+        """phi3 on TP_SERVE_MESH: at full width the shipped budget asks
+        for fsdp (its bf16 weights over model 2 exceed it); at the smoke
+        size the budget is lowered for the run, so that it does too."""
+        from repro_torch.parallel import sharding as shd
+        shipped = shd.HBM_BYTES_BUDGET
+        if opts.get("smoke"):
+            shd.HBM_BYTES_BUDGET = 0
+        try:
+            return _tp_prefill(dev, config("phi3-medium-14b"), rank, world,
+                               TP_SERVE_MESH, TP_SERVE_ROWS,
+                               opts.get("serve_len", TP_SERVE_LEN))
+        finally:
+            shd.HBM_BYTES_BUDGET = shipped
+
     out = {}
     for name, fn in (
-            ("megatron_prefill", lambda: _tp_megatron_prefill(
-                dev, config("phi3-medium-14b"), rank, world,
+            ("megatron_prefill", lambda: _tp_prefill(
+                dev, config("phi3-medium-14b"), rank, world, (1, world), 1,
                 opts["prefill_len"])),
+            ("serve_fsdp_prefill", serve_fsdp_prefill),
             ("ep_prefill", lambda: _tp_ep_prefill(
                 dev, config("olmoe-1b-7b"), rank, world,
                 opts["prefill_len"])),
@@ -4195,8 +4257,9 @@ def gloo_probe() -> str:
 
 def run_tensor_parallel(opts: dict) -> dict:
     """The compute-on-sharded-weights phases: TP_RANKS gloo ranks
-    (megatron_prefill, ep_prefill, megatron_train), after the gloo probe
-    on the card.  Their times are gloo on one card."""
+    (megatron_prefill, serve_fsdp_prefill, ep_prefill, megatron_train),
+    after the gloo probe on the card.  Their times are gloo on one
+    card."""
     import shutil
     import tempfile
 
@@ -4218,20 +4281,28 @@ def run_tensor_parallel(opts: dict) -> dict:
                  for r in range(TP_RANKS)]
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-    mp, ep, mt = (ranks[0][k] for k in ("megatron_prefill", "ep_prefill",
-                                        "megatron_train"))
-    out.update(megatron_prefill=mp, ep_prefill=ep, megatron_train=mt)
+    mp, sp, ep, mt = (ranks[0][k] for k in (
+        "megatron_prefill", "serve_fsdp_prefill", "ep_prefill",
+        "megatron_train"))
+    out.update(megatron_prefill=mp, serve_fsdp_prefill=sp, ep_prefill=ep,
+               megatron_train=mt)
     cuda = opts["device"] == "cuda"
-    log(f"phase megatron_prefill (gloo, {TP_RANKS} ranks on one card): "
-        f"{mp['model']}, {mp['tokens']} tokens in {mp['seconds']:.3f} s "
-        f"({mp['tokens_s']:.1f} tok/s; by rank {mp['seconds_by_rank']}), "
-        f"weight bytes by rank {mp['bytes_by_rank']} of {mp['whole_bytes']}"
-        f", peak GiB by rank {mp['peak_gib_by_rank']}, flash launches by "
-        f"rank {mp['launches_by_rank']} (tc {mp['tc_by_rank']}), finite "
-        f"{mp['finite']}; bf16 against the one-process kernel route "
-        f"{mp['bf16_vs_one_process']}, witness (one process, plain vs "
-        f"kernel route) {mp['witness']}; float32 at {mp['f32_depth']} layers "
-        f"{mp['f32_vs_one_process']}")
+    for name, r in (("megatron_prefill", mp), ("serve_fsdp_prefill", sp)):
+        log(f"phase {name} (gloo, {TP_RANKS} ranks on one card, mesh "
+            f"{r['mesh']}, serve_needs_fsdp {r['serve_needs_fsdp']}): "
+            f"{r['model']}, batch {r['batch']}, {r['tokens']} tokens in "
+            f"{r['seconds']:.3f} s ({r['tokens_s']:.1f} tok/s; by rank "
+            f"{r['seconds_by_rank']}), weight bytes by rank "
+            f"{r['bytes_by_rank']} of {r['whole_bytes']}, peak GiB by rank "
+            f"{r['peak_gib_by_rank']}, flash launches by rank "
+            f"{r['launches_by_rank']} (tc {r['tc_by_rank']}), finite "
+            f"{r['finite']}; rank 0's collectives "
+            f"{r['collective_op_counts_rank0']}, wire bytes "
+            f"{r['wire_bytes_rank0']:.6g} (all-gathers "
+            f"{r['gather_bytes_rank0']:.6g}); bf16 against the one-process "
+            f"kernel route {r['bf16_vs_one_process']}, witness (one process,"
+            f" plain vs kernel route) {r['witness']}; float32 at "
+            f"{r['f32_depth']} layers {r['f32_vs_one_process']}")
     for strategy in ("megatron", "ep_seq"):
         r = ep[strategy]
         log(f"phase ep_prefill {strategy} (gloo, {TP_RANKS} ranks on one "
@@ -4265,19 +4336,27 @@ def run_tensor_parallel(opts: dict) -> dict:
         return all(abs(b / whole - 1 / TP_RANKS) <= TP_SHARE_SLACK
                    for b in by_rank)
 
-    wit = mp["witness"]
-    cmp = mp["bf16_vs_one_process"]
-    if cuda:
-        assert cmp["mean_abs"] <= WITNESS_RATIO * wit["mean_abs"], (cmp, wit)
-        assert cmp["top1"] >= wit["top1"] - WITNESS_TOP1_SLACK, (cmp, wit)
-    assert cmp["mean_abs"] <= BF16_LOGITS_MEAN, cmp
-    assert mp["f32_vs_one_process"]["max_abs"] <= TP_F32_TOL, mp
-    assert mp["finite"] and quarter(mp["bytes_by_rank"], mp["whole_bytes"]), \
-        mp
     n_attn = 40 if not opts.get("smoke") else None
-    if cuda:
-        assert mp["tc_by_rank"] == mp["launches_by_rank"] and all(
-            n == (n_attn or n) and n > 0 for n in mp["launches_by_rank"]), mp
+    for r in (mp, sp):
+        wit = r["witness"]
+        cmp = r["bf16_vs_one_process"]
+        if cuda:
+            assert cmp["mean_abs"] <= WITNESS_RATIO * wit["mean_abs"], \
+                (cmp, wit)
+            assert cmp["top1"] >= wit["top1"] - WITNESS_TOP1_SLACK, \
+                (cmp, wit)
+        assert cmp["mean_abs"] <= BF16_LOGITS_MEAN, cmp
+        assert r["f32_vs_one_process"]["max_abs"] <= TP_F32_TOL, r
+        assert r["finite"] and quarter(r["bytes_by_rank"],
+                                       r["whole_bytes"]), r
+        if cuda:
+            assert r["tc_by_rank"] == r["launches_by_rank"] and all(
+                n == (n_attn or n) and n > 0
+                for n in r["launches_by_rank"]), r
+    # fsdp on (2, 2): the width over data, gathered a block at a time (on
+    # that mesh no other all-gather: a rank's 5 KV heads are whole)
+    assert sp["serve_needs_fsdp"] and sp["gather_bytes_rank0"] > 0, sp
+    assert not mp["serve_needs_fsdp"], mp
     for strategy in ("megatron", "ep_seq"):
         r = ep[strategy]
         assert r["pinned_drops"] == ep["one_process_drops"], (strategy, r)
@@ -4924,6 +5003,13 @@ DRYRUN_CELLS = {
     "dryrun_production_train": dict(arch="jamba-1.5-large-398b",
                                     shape_name="train_4k",
                                     mesh_kind="single"),
+    # serve_fsdp_prefill's cell: rank 0 of the (2, 2) mesh, built directly
+    # (no mesh kind of run_cell's is (2, 2))
+    "dryrun_serve_fsdp_prefill": dict(arch="phi3-medium-14b",
+                                      shape_name="prefill_32k",
+                                      mesh_shape=TP_SERVE_MESH,
+                                      batch=TP_SERVE_ROWS,
+                                      seq_len=TP_SERVE_LEN),
 }
 #: predicted peak over the phase's measured peak (PERF.md §6, written
 #: before the first card run): the trace allocates the tensors the card's
@@ -4940,10 +5026,72 @@ def dryrun_worker(out_path: str) -> None:
     out = {}
     for name, kw in DRYRUN_CELLS.items():
         t0 = time.perf_counter()
-        r = dryrun.run_cell(**kw)
+        r = (dryrun_mesh_cell(**kw) if "mesh_shape" in kw
+             else dryrun.run_cell(**kw))
         r["seconds"] = time.perf_counter() - t0
         out[name] = r
         pathlib.Path(out_path).write_text(json.dumps(out))
+
+
+def dryrun_mesh_cell(arch: str, shape_name: str, mesh_shape: tuple,
+                     batch: int, seq_len: int) -> dict:
+    """Rank 0's step of ``arch``'s cell of ``shape_name`` (``launch.specs.
+    build_cell``: a prefill on the serving weights) at ``batch`` x
+    ``seq_len`` on a ("data", "model") mesh of ``mesh_shape``, traced over
+    a fake group as ``dryrun.run_cell`` traces its cells; with the
+    weights' bytes of the rank (``weight_bytes``, the params' slices)."""
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import sharding as shd
+    cfg = get_config(arch)
+    base = SHAPE_BY_NAME[shape_name]
+    shape = ShapeConfig(base.name, seq_len, batch, base.kind)
+    with dryrun.fake_world(math.prod(mesh_shape)):
+        mesh = make_mesh(mesh_shape, ("data", "model"), device_type="cpu")
+        cell = specs.build_cell(cfg, shape, mesh)
+        cost = dryrun.trace(cell)
+        fsdp = shd.serve_needs_fsdp(cfg, mesh)
+    return {"status": "ok", "arch": arch, "shape": shape_name,
+            "mesh": list(mesh_shape), "rank": 0, "batch": [batch, seq_len],
+            "serve_needs_fsdp": fsdp, "weight_bytes": sum(
+                a.local_bytes for a in tree_leaves(cell.specs[0])), **cost}
+
+
+def check_serve_fsdp_dryrun(r: dict, phase: dict) -> dict:
+    """dryrun_serve_fsdp_prefill against serve_fsdp_prefill's rank 0: its
+    weight bytes exactly, its traced flash_attention calls the rank's tc
+    launches, its collectives those rank 0 recorded (the same code records
+    both); its peak printed beside the measured one."""
+    measured_gib = phase["peak_gib_by_rank"][0]
+    log(f"phase dryrun_serve_fsdp_prefill: {r['arch']} x {r['shape']} at "
+        f"batch {r['batch']} on {r['mesh']}, rank 0, serve_needs_fsdp "
+        f"{r['serve_needs_fsdp']}: traced in {r['trace_s']:.2f} s; weight "
+        f"bytes {r['weight_bytes']} predicted, {phase['bytes_by_rank'][0]} "
+        f"held by rank 0; flash launches {r['kernel_launches']} (rank 0 "
+        f"tc {phase['tc_by_rank'][0]}); collectives "
+        f"{r['collective_op_counts']}, wire bytes "
+        f"{r['wire_bytes_per_device']:.6g} predicted, "
+        f"{phase['collective_op_counts_rank0']} and "
+        f"{phase['wire_bytes_rank0']:.6g} recorded; peak "
+        f"{r['peak_memory_bytes'] / 2**30:.3f} GiB predicted against "
+        f"{measured_gib:.3f} GiB measured (ratio "
+        f"{r['peak_memory_bytes'] / 2**30 / measured_gib:.4f})")
+    assert r["serve_needs_fsdp"] and phase["serve_needs_fsdp"], (r, phase)
+    assert r["weight_bytes"] == phase["bytes_by_rank"][0], \
+        (r["weight_bytes"], phase["bytes_by_rank"])
+    assert r["kernel_launches"] == {
+        "flash_attention": {"tc": phase["tc_by_rank"][0]}}, r
+    assert r["collective_op_counts"] == phase["collective_op_counts_rank0"]
+    assert r["wire_bytes_per_device"] == phase["wire_bytes_rank0"]
+    return {"peak_ratio": r["peak_memory_bytes"] / 2**30 / measured_gib,
+            "seconds": r.get("seconds"), **{k: r[k] for k in (
+                "trace_s", "weight_bytes", "argument_bytes",
+                "peak_memory_bytes", "flops_per_device",
+                "wire_bytes_per_device", "collective_op_counts",
+                "kernel_launches")}}
 
 
 def start_dryruns() -> dict:
@@ -5075,6 +5223,8 @@ def finish_dryruns(handle: dict, phi3: dict, lm_train: dict) -> dict:
                               "wire_bytes_per_device",
                               "collective_op_counts")}}
     out["dryrun_production"] = prod
+    # held against serve_fsdp_prefill after the tensor-parallel phases
+    out["dryrun_serve_fsdp_prefill"] = got["dryrun_serve_fsdp_prefill"]
     return out
 
 
@@ -5374,9 +5524,14 @@ def main(argv=None) -> None:
         "device": "cuda", "prefill_len": args.compare_len,
         "train_len": TP_TRAIN_LEN})
     parallel["tensor_parallel"] = tensor_parallel
+    dry_out["dryrun_serve_fsdp_prefill"] = check_serve_fsdp_dryrun(
+        dry_out["dryrun_serve_fsdp_prefill"],
+        tensor_parallel["serve_fsdp_prefill"])
     tp_flash = {
         "megatron_prefill": sum(
             tensor_parallel["megatron_prefill"]["launches_by_rank"]),
+        "serve_fsdp_prefill": sum(
+            tensor_parallel["serve_fsdp_prefill"]["launches_by_rank"]),
         "ep_prefill_megatron": sum(
             tensor_parallel["ep_prefill"]["megatron"]["launches_by_rank"]),
         "ep_prefill_ep_seq": sum(
@@ -5406,7 +5561,8 @@ def main(argv=None) -> None:
                    lm_out["prefill"]["launches_by_path"],
                    lm_out["serve"]["launches_by_path"],
                    lm_out["decode_window"]["launches_by_path"], emb_paths]
-    tp_tc = sum(tensor_parallel["megatron_prefill"]["tc_by_rank"]) + sum(
+    tp_tc = sum(sum(tensor_parallel[k]["tc_by_rank"]) for k in (
+        "megatron_prefill", "serve_fsdp_prefill")) + sum(
         sum(tensor_parallel["ep_prefill"][k]["tc_by_rank"])
         for k in ("megatron", "ep_seq")) + sum(
         sum(sharded[ph.name]["tc_by_rank"]) for ph in SD_PHASES)

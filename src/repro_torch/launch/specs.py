@@ -143,7 +143,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     """The cell of ``cfg`` x ``shape`` on the ``DeviceMesh`` ``mesh``:
     a train step (``steps.make_train_step(mesh=)``: the parameters, the
     AdamW state and the batch), a prefill (``make_prefill_step(mesh=)``:
-    the parameters and the batch) or one decode step
+    the serving parameters and the batch) or one decode step
     (``make_serve_step(mesh=)``: the serving parameters, the caches of a
     ``seq_len`` context as DTensors of the rank's ``cache_pspecs`` slices,
     the token batch and the position).  ``attn_impl`` defaults to each
@@ -170,16 +170,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 _args(batch, make, whole=True))
         return Cell(step, args, (params, ostate, batch), {"kind": "train"})
 
-    serve_fsdp = cfg.fsdp or shd.serve_needs_fsdp(cfg, mesh)
-    pspec = shd.param_pspecs(pspecs_all, cfg, mesh, fsdp=serve_fsdp)
-    params = _spec_tree(pspecs_all, pspec, mesh)
+    params = _spec_tree(pspecs_all, lm.serve_pspecs(cfg, mesh), mesh)
 
     if shape.kind == "prefill":
-        if serve_fsdp != cfg.fsdp and shd._shape_of(mesh).get("data", 1) > 1:
-            raise NotImplementedError(
-                "the port's prefill on a mesh (lm.lm_logits) places the "
-                "weights by param_pspecs with cfg.fsdp; this cell would "
-                "split them over data")
         batch = batch_specs(cfg, shape, mesh)
         step = steps_lib.make_prefill_step(cfg, mesh=mesh, **impl)
         args = (_args(params, make),

@@ -13,7 +13,10 @@ On a mesh (``forward_hidden``/``lm_logits`` with ``mesh=``, a
 ``DeviceMesh``), every rank takes the global batch and works on its own
 slice, split as :func:`_constrain_batch` says, the counterpart of the JAX
 package's activation constraint at block boundaries; the result is a
-DTensor with that split.
+DTensor with that split.  ``lm_logits`` (the prefill cell) takes the
+weights placed by :func:`serve_pspecs`, as the JAX package's prefill cell
+places them; ``forward_hidden`` and ``lm_loss`` take them by
+``param_pspecs`` with ``cfg.fsdp``, as its train cell does.
 
 Decode and prefill on a mesh (``decode_step``, ``prefill`` and
 ``init_cache`` with ``mesh=``) follow the JAX package's decode cell: the
@@ -281,15 +284,20 @@ _TOP = ("embed", "unembed", "final_norm")
 
 
 def _forward(params: PyTree, batch: Dict[str, torch.Tensor],
-             cfg: ModelConfig, attn_impl: str, mesh):
+             cfg: ModelConfig, attn_impl: str, mesh, serve: bool = False):
     """(final hidden states, aux loss, layout, top): on a mesh the hidden
     states are this rank's slice as ``layout`` splits them, without one
     the whole batch (layout None); ``top`` holds the leaves of
     :data:`_TOP`, gathered over (pod, data) where fsdp splits them.
 
-    On a mesh ``params`` are this rank's slices of the leaves, as
-    ``parallel.sharding.param_pspecs`` gives them (local tensors, or the
-    DTensors of ``shard_tree`` and ``Checkpointer.restore(shardings=)``)."""
+    On a mesh ``params`` are this rank's slices of the leaves (local
+    tensors, or the DTensors of ``shard_tree`` and
+    ``Checkpointer.restore(shardings=)``), as
+    ``parallel.sharding.param_pspecs`` gives them with ``cfg.fsdp`` or,
+    with ``serve``, as :func:`serve_pspecs` gives them (fsdp also where
+    ``serve_needs_fsdp`` asks for it); what that placement splits over
+    (pod, data) is gathered before each block, the encoder's blocks and
+    the leaves of :data:`_TOP` alike."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     vision = batch.get("vision_embeds")
@@ -303,7 +311,8 @@ def _forward(params: PyTree, batch: Dict[str, torch.Tensor],
         angles = layout.local(angles, batch=angles.shape[0] == b)
         params = shd.to_local(params)
         tp = tensor_parallel.model_group(mesh)
-        pspecs = shd.param_pspecs(model_specs(cfg), cfg, mesh)
+        pspecs = (serve_pspecs(cfg, mesh) if serve
+                  else shd.param_pspecs(model_specs(cfg), cfg, mesh))
     top = {k: params[k] for k in _TOP if k in params}
     if pspecs is not None:
         top = tensor_parallel.gather_fsdp(top, {k: pspecs[k] for k in top},
@@ -466,8 +475,11 @@ def lm_logits(params: PyTree, batch: Dict[str, torch.Tensor],
     """Logits (B, S, padded_vocab) over a full prompt; with ``mesh``, a
     DTensor split as :func:`forward_hidden`'s hidden states are, and under
     ``megatron`` its vocabulary over ``model`` (each rank computes its
-    columns, as the JAX package constrains them)."""
-    h, _, layout, top = _forward(params, batch, cfg, attn_impl, mesh)
+    columns, as the JAX package constrains them).  On a mesh ``params``
+    are this rank's serving slices (:func:`serve_pspecs`), the placement
+    :func:`decode_step` and :func:`prefill` take."""
+    h, _, layout, top = _forward(params, batch, cfg, attn_impl, mesh,
+                                 serve=True)
     tp = None if mesh is None else tensor_parallel.model_group(mesh)
     logits = _unembed(top, h, cfg, tp)
     if layout is None:

@@ -136,8 +136,10 @@ def make_prefill_step(cfg: ModelConfig, attn_impl: str = "kernel",
                       mesh=None) -> Callable:
     """Forward-only logits over a full prompt (the inference-prefill cell);
     attention goes through the ``flash_attention`` kernel.  With ``mesh``
-    (a ``DeviceMesh``) every rank passes the whole prompt and gets a
-    DTensor of its slice (``lm.lm_logits``)."""
+    (a ``DeviceMesh``) every rank passes the whole prompt and its serving
+    slices of the parameters (``lm.serve_pspecs``, as for
+    :func:`make_serve_step`) and gets a DTensor of its slice
+    (``lm.lm_logits``)."""
 
     @torch.no_grad()
     def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor]):

@@ -29,6 +29,13 @@ a 600 s deadline, kills the rest.
 * (g) a full cell's flops are affine in the depth: each layer adds the
   block's flops (prefill) or the block's and its weights' gradients'
   (train), exactly.
+* (h) prefill on weights placed by the serving rule: at the shipped
+  budget, ``qwen3-moe-30b-a3b`` x ``prefill_32k`` on the (2, 4) mesh
+  (where ``serve_needs_fsdp`` holds: the weights' width over ``data``)
+  builds with the argument leaves of the JAX package's cell on its own
+  8-device mesh (specs only); and the smoke prefill cells of
+  ``SERVE_FSDP_ARCHS`` with ``HBM_BYTES_BUDGET`` lowered to
+  ``SERVE_BUDGET`` in both packages join (e) and (f).
 * The kernel's traced path: ``flash_attention`` on fake CUDA tensors.
 """
 import dataclasses
@@ -65,6 +72,16 @@ KINDS = (("train", "train_4k"), ("prefill", "prefill_32k"),
          ("decode", "decode_32k"))
 #: the cells the gloo ranks run on real tensors
 GLOO_CELLS = (("llama3.2-1b", "prefill"), ("jamba-1.5-large-398b", "train"))
+#: the smoke prefill cells built with the serving budget lowered to
+#: SERVE_BUDGET (fsdp over data, as serve_needs_fsdp asks), in (e) and (f)
+SERVE_FSDP_ARCHS = ("llama3.2-1b", "olmoe-1b-7b")
+SERVE_BUDGET = 1024
+#: the full-size cell whose specs are held against the JAX package's on
+#: the (2, 4) mesh at the shipped budget
+SERVE_FULL = ("qwen3-moe-30b-a3b", "prefill_32k")
+#: the same cells run by the gloo ranks on real tensors
+SERVE_GLOO_CELLS = tuple((a, "prefill_serve_fsdp")
+                         for a in SERVE_FSDP_ARCHS)
 #: the (1, 1) cells of the per-block identity, at 2 and 3 layers
 DEPTHS = (2, 3)
 MESHES = ("single", "multi")
@@ -160,27 +177,60 @@ import jax
 from repro.configs import get_config
 from repro.configs.base import ShapeConfig
 from repro.launch import hlo_analysis, specs as S
+from repro.configs import SHAPES
 from repro.launch.mesh import _make_mesh
+from repro.parallel import sharding as shd
 archs, kinds = json.loads(sys.argv[2]), json.loads(sys.argv[3])
+serve_archs, budget, full = (json.loads(a) for a in sys.argv[4:7])
 mesh = _make_mesh((2, 4), ("data", "model"))
 jax.set_mesh(mesh)
 out = {}
-for arch in archs:
-    cfg = get_config(arch).smoke()
-    for kind, name in kinds:
-        cell = S.build_cell(cfg, ShapeConfig(name, 64, 4, kind), mesh)
-        compiled = jax.jit(cell.fn, in_shardings=cell.in_shardings,
-                           out_shardings=cell.out_shardings).lower(
-            *cell.args).compile()
-        ma = compiled.memory_analysis()
-        ca = compiled.cost_analysis() or {}
-        coll = hlo_analysis.analyze_collectives(compiled.as_text(), 8)
-        out[f"{arch}/{kind}"] = {
-            "argument_bytes": ma.argument_size_in_bytes,
+
+def compile_cell(cfg, kind, name):
+    cell = S.build_cell(cfg, ShapeConfig(name, 64, 4, kind), mesh)
+    compiled = jax.jit(cell.fn, in_shardings=cell.in_shardings,
+                       out_shardings=cell.out_shardings).lower(
+        *cell.args).compile()
+    ma = compiled.memory_analysis()
+    ca = compiled.cost_analysis() or {}
+    coll = hlo_analysis.analyze_collectives(compiled.as_text(), 8)
+    return {"argument_bytes": ma.argument_size_in_bytes,
             "peak_memory_bytes": ma.peak_memory_in_bytes,
             "flops_per_device": float(ca.get("flops", -1.0)),
             "wire_bytes_per_device": coll["wire_bytes_per_device"],
             "collective_op_counts": coll["op_counts"]}
+
+for arch in archs:
+    cfg = get_config(arch).smoke()
+    for kind, name in kinds:
+        out[f"{arch}/{kind}"] = compile_cell(cfg, kind, name)
+shipped = shd.HBM_BYTES_BUDGET
+shd.HBM_BYTES_BUDGET = budget
+for arch in serve_archs:
+    cfg = get_config(arch).smoke()
+    assert shd.serve_needs_fsdp(cfg, mesh), arch
+    out[f"{arch}/prefill_serve_fsdp"] = compile_cell(cfg, "prefill",
+                                                     "prefill_32k")
+shd.HBM_BYTES_BUDGET = shipped
+
+def key(k):
+    return str(getattr(k, "key", getattr(k, "idx", k)))
+
+def norm(spec):
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+arch, shape_name = full
+cfg = get_config(arch)
+cell = S.build_cell(cfg, next(s for s in SHAPES if s.name == shape_name),
+                    mesh)
+leaves = {}
+for path, leaf in jax.tree_util.tree_flatten_with_path(cell.args)[0]:
+    sh = leaf.sharding
+    leaves["/".join(key(k) for k in path)] = [
+        list(leaf.shape), str(leaf.dtype), norm(sh.spec),
+        list(sh.shard_shape(leaf.shape))]
+out["serve_full"] = {"leaves": leaves,
+                     "serve_needs_fsdp": shd.serve_needs_fsdp(cfg, mesh)}
 json.dump(out, open(sys.argv[1], "w"))
 """
 
@@ -190,8 +240,26 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, specs as S
 from repro_torch.launch.mesh import make_host_mesh, make_mesh
+from repro_torch.configs import SHAPE_BY_NAME
+from repro_torch.parallel import sharding as shd
 archs, kinds, depths = (json.loads(a) for a in sys.argv[2:5])
+serve_archs, budget, full = (json.loads(a) for a in sys.argv[5:8])
 out = {"cells": {}, "depth": {}}
+
+def norm(spec):
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+def walk(x, path, leaves):
+    if isinstance(x, S.ArgSpec):
+        leaves[path] = [list(x.shape), str(x.dtype).replace("torch.", ""),
+                        norm(x.sharding.spec), list(x.local_shape)]
+    elif isinstance(x, dict):
+        for k in sorted(x):
+            walk(x[k], f"{path}/{k}" if path else str(k), leaves)
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            walk(v, f"{path}/{i}" if path else str(i), leaves)
+
 with dryrun.fake_world(8):
     mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
     for arch in archs:
@@ -199,6 +267,22 @@ with dryrun.fake_world(8):
         for kind, name in kinds:
             cell = S.build_cell(cfg, ShapeConfig(name, 64, 4, kind), mesh)
             out["cells"][f"{arch}/{kind}"] = dryrun.trace(cell)
+    shipped = shd.HBM_BYTES_BUDGET
+    shd.HBM_BYTES_BUDGET = budget
+    for arch in serve_archs:
+        cfg = get_config(arch).smoke()
+        assert shd.serve_needs_fsdp(cfg, mesh), arch
+        cell = S.build_cell(cfg, ShapeConfig("prefill_32k", 64, 4,
+                                             "prefill"), mesh)
+        out["cells"][f"{arch}/prefill_serve_fsdp"] = dryrun.trace(cell)
+    shd.HBM_BYTES_BUDGET = shipped
+    arch, shape_name = full
+    cfg = get_config(arch)
+    leaves = {}
+    walk(S.build_cell(cfg, SHAPE_BY_NAME[shape_name], mesh).specs, "",
+         leaves)
+    out["serve_full"] = {"leaves": leaves,
+                         "serve_needs_fsdp": shd.serve_needs_fsdp(cfg, mesh)}
 with dryrun.fake_world(1):
     mesh = make_host_mesh(device_type="cpu")
     for kind, name in kinds[:2]:
@@ -234,8 +318,8 @@ _GLOO_RANK = """
 import datetime, json, sys
 import torch, torch.distributed as dist
 torch.set_num_threads(1)
-rank, world, store, path, cells = sys.argv[1:6]
-rank, world = int(rank), int(world)
+rank, world, store, path, cells, budget = sys.argv[1:7]
+rank, world, budget = int(rank), int(world), int(budget)
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
                         world_size=world,
                         timeout=datetime.timedelta(seconds=60))
@@ -243,8 +327,11 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import specs as S, wire
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel import sharding as shd
 mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
-names = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
+names = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k",
+         "prefill_serve_fsdp": "prefill_32k"}
+shipped = shd.HBM_BYTES_BUDGET
 g = torch.Generator().manual_seed(rank)
 
 def real(spec):
@@ -255,8 +342,9 @@ def real(spec):
 out = {}
 for arch, kind in json.loads(cells):
     cfg = get_config(arch).smoke()
-    cell = S.build_cell(cfg, ShapeConfig(names[kind], 64, 4, kind), mesh,
-                        make=real)
+    shd.HBM_BYTES_BUDGET = budget if kind == "prefill_serve_fsdp" else shipped
+    cell = S.build_cell(cfg, ShapeConfig(names[kind], 64, 4,
+                                         kind.split("_")[0]), mesh, make=real)
     with wire.count_collectives() as count:
         cell.fn(*cell.args)
     out[f"{arch}/{kind}"] = count.summary()
@@ -273,21 +361,23 @@ def _run_all(tmp, deadline_s=600.0):
     env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
            "OMP_NUM_THREADS": "1"}
     archs, kinds = json.dumps(SMOKE_ARCHS), json.dumps(KINDS)
+    serve = [json.dumps(SERVE_FSDP_ARCHS), json.dumps(SERVE_BUDGET),
+             json.dumps(SERVE_FULL)]
     commands = {
         "jax_specs": [sys.executable, "-c", textwrap.dedent(_JAX_SPECS),
                       str(tmp / "jax_specs.json")],
         "port_specs": [sys.executable, "-c", textwrap.dedent(_PORT_SPECS),
                        str(tmp / "port_specs.json")],
         "xla_cells": [sys.executable, "-c", textwrap.dedent(_XLA_CELLS),
-                      str(tmp / "xla_cells.json"), archs, kinds],
+                      str(tmp / "xla_cells.json"), archs, kinds] + serve,
         "port_cells": [sys.executable, "-c", textwrap.dedent(_PORT_CELLS),
                        str(tmp / "port_cells.json"), archs, kinds,
-                       json.dumps(DEPTHS)]}
+                       json.dumps(DEPTHS)] + serve}
     for r in range(WORLD):
         commands[f"rank{r}"] = [
             sys.executable, "-c", textwrap.dedent(_GLOO_RANK), str(r),
             str(WORLD), str(tmp / "store"), str(tmp / "gloo.json"),
-            json.dumps(GLOO_CELLS)]
+            json.dumps(GLOO_CELLS + SERVE_GLOO_CELLS), str(SERVE_BUDGET)]
     procs = {}
     for name, cmd in commands.items():
         with open(tmp / f"{name}.err", "w") as err:
@@ -520,11 +610,13 @@ def test_collective_counts_match_hlo_analysis(trips):
 # (e), (f), (g): traced cells against XLA and against real runs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", [k for k, _ in KINDS])
-@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+@pytest.mark.parametrize("arch,kind", [
+    (a, k) for a in SMOKE_ARCHS for k, _ in KINDS] + [
+    (a, "prefill_serve_fsdp") for a in SERVE_FSDP_ARCHS])
 def test_argument_bytes_match_xla(runs, arch, kind):
     """No split of these cells fails to divide a dim, so no argument is
-    padded on either side."""
+    padded on either side.  ``prefill_serve_fsdp``: the prefill cell with
+    the serving budget lowered, its weights' width over ``data`` too."""
     got = runs["port_cells"]["cells"][f"{arch}/{kind}"]
     want = runs["xla_cells"][f"{arch}/{kind}"]
     print(f"{arch} {kind}: flops {got['flops_per_device']:.4g} (XLA "
@@ -538,7 +630,7 @@ def test_argument_bytes_match_xla(runs, arch, kind):
     assert got["loop_trip_counts"] == {}
 
 
-@pytest.mark.parametrize("arch,kind", GLOO_CELLS)
+@pytest.mark.parametrize("arch,kind", GLOO_CELLS + SERVE_GLOO_CELLS)
 def test_fake_group_collectives_match_gloo_run(runs, arch, kind):
     got = runs["port_cells"]["cells"][f"{arch}/{kind}"]
     want = runs["gloo"][f"{arch}/{kind}"]
@@ -588,6 +680,20 @@ def test_host_mesh_step_costs_what_the_step_without_a_mesh_costs(runs,
     placing the results as DTensors allocates nothing the trace counts."""
     got, want = runs["port_cells"]["host"][kind]
     assert got == want
+
+
+def test_serving_prefill_cell_specs_match_jax_at_the_shipped_budget(runs):
+    """(h): qwen3-moe-30b-a3b's prefill_32k on (2, 4), where the port's
+    cell used to refuse the serving placement: every argument leaf's path,
+    global shape, dtype, PartitionSpec and rank-0 local shape equal the
+    JAX package's cell's, the weights' width over ``data``."""
+    want = runs["xla_cells"]["serve_full"]
+    got = runs["port_cells"]["serve_full"]
+    assert want["serve_needs_fsdp"] and got["serve_needs_fsdp"]
+    assert sorted(got["leaves"]) == sorted(want["leaves"])
+    for path, entry in want["leaves"].items():
+        assert got["leaves"][path] == entry, path
+    assert want["leaves"]["0/embed"][2] == ["model", "data"]
 
 
 # ---------------------------------------------------------------------------

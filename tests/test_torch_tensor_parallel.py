@@ -43,6 +43,16 @@ both, in float32.  Both write npz files; the tests compare them.
 * The shards: each rank's leaves are exactly its slices of the full
   tensors, at the split shapes, and its moments have its ``opt_pspecs``
   slices' shapes.
+* Prefill on weights placed by the serving rule (``SERVE``): with
+  ``HBM_BYTES_BUDGET`` set to ``SERVE_BUDGET`` in both packages for the
+  case, so that ``serve_needs_fsdp`` holds for the smoke config, the JAX
+  package's ``make_prefill_step`` on weights placed by ``param_pspecs(...,
+  fsdp=serve_fsdp)``, as its prefill cell places them, beside the port's
+  ``make_prefill_step(..., mesh=)`` on each rank's ``lm.serve_pspecs``
+  slices (the width over ``data`` too): phi3 6/2, olmoe (its experts'
+  width over ``data``) and seamless (its encoder through ``encode(...,
+  pspecs=)``).  Each rank's logits against its block of the JAX
+  package's within 1e-4, and its leaves exactly its serving slices.
 """
 import dataclasses
 import json
@@ -82,6 +92,15 @@ FORWARD = tuple((arch, arch, {}, 128 if arch == "h2o-danube-3-4b" else 64,
     ("olmoe-ep_seq", "olmoe-1b-7b", {"shard_strategy": "ep_seq"}, 64, SHAPE),
     # model 2: sLSTM's up (64, 170) splits and its down (85, 64) does not
     ("xlstm-model2", "xlstm-350m", {}, 64, (4, 2)))
+#: prefill on serving weights with the budget lowered: fsdp over data
+SERVE = (
+    ("serve-phi3-6-2", "phi3-medium-14b", {"n_heads": 6, "n_kv_heads": 2},
+     64, SHAPE),
+    ("serve-olmoe", "olmoe-1b-7b", {}, 64, SHAPE),
+    ("serve-seamless", "seamless-m4t-large-v2", {}, 64, SHAPE))
+#: the serving budget (bytes a ``model`` slice) of the SERVE cases, set in
+#: both packages' ``parallel.sharding`` for each: every smoke config is above
+SERVE_BUDGET = 1024
 TRAIN = (
     ("train-llama", "llama3.2-1b", {}, 64, SHAPE),
     ("train-phi3-6-2", "phi3-medium-14b", {"n_heads": 6, "n_kv_heads": 2},
@@ -141,6 +160,7 @@ from repro.launch.mesh import _make_mesh
 from repro.models import lm
 from repro.optim.adamw import OptimizerConfig, adamw_update, init_opt_state
 from repro.parallel import sharding as shd
+from repro.train import steps
 
 opt = OptimizerConfig(**{opt!r})
 
@@ -161,7 +181,8 @@ def one_ulp(params):   # every element moved by one float32 ulp
     return jax.tree.map(lambda a: a * jnp.asarray(1 + 2.0 ** -23 * rng.choice(
         [-1.0, 1.0], size=a.shape), a.dtype), params)
 
-for name, arch, over, seq, shape, train in cases:
+budget = shd.HBM_BYTES_BUDGET
+for name, arch, over, seq, shape, kind in cases:
     shape = tuple(shape)
     if shape not in meshes:
         meshes[shape] = _make_mesh(shape, ("data", "model"))
@@ -169,6 +190,13 @@ for name, arch, over, seq, shape, train in cases:
     cfg = dataclasses.replace(get_config(arch).smoke(), **over)
     params = tree(name + "/p/", jnp.asarray)
     pspecs = shd.param_pspecs(lm.model_specs(cfg), cfg, mesh)
+    if kind == "serve":   # as its prefill cell places the weights
+        shd.HBM_BYTES_BUDGET = {serve_budget!r}
+        serve_fsdp = cfg.fsdp or shd.serve_needs_fsdp(cfg, mesh)
+        shd.HBM_BYTES_BUDGET = budget
+        out[name + "/serve_fsdp"] = np.asarray(serve_fsdp)
+        pspecs = shd.param_pspecs(lm.model_specs(cfg), cfg, mesh,
+                                  fsdp=serve_fsdp)
     batch = {{k[len(name) + 3:]: jnp.asarray(v) for k, v in inp.items()
               if k.startswith(name + "/b/")}}
     one = name in {one_device!r}
@@ -177,7 +205,11 @@ for name, arch, over, seq, shape, train in cases:
         bs = batch if one else {{k: jax.device_put(v, NamedSharding(
             mesh, shd.batch_pspec(mesh, v.shape[0], v.ndim - 1)))
             for k, v in batch.items()}}
-        if not train:
+        if kind == "serve":
+            out[name + "/logits"] = np.asarray(jax.jit(
+                steps.make_prefill_step(cfg))(ps, bs))
+            continue
+        if kind == "forward":
             fwd = jax.jit(lambda p, b: lm.lm_logits(p, b, cfg))
             logits = np.asarray(fwd(ps, bs))
             out[name + "/logits"] = logits
@@ -235,7 +267,8 @@ def spy(params, grads, state, opt, mesh=None, split=None, zero=None):
     return update(params, grads, state, opt, mesh, split, zero)
 
 steps.adamw_update = spy
-for name, arch, over, seq, shape, train in cases:
+budget = shd.HBM_BYTES_BUDGET
+for name, arch, over, seq, shape, kind in cases:
     shape = tuple(shape)
     if shape not in meshes:
         meshes[shape] = make_mesh(shape, ("data", "model"), "cpu")
@@ -248,7 +281,18 @@ for name, arch, over, seq, shape, train in cases:
     for k in ("tokens", "targets"):
         if k in batch:
             batch[k] = batch[k].long()
-    if not train:
+    if kind == "serve":
+        shd.HBM_BYTES_BUDGET = {serve_budget!r}
+        params = shd.local_tree(full, lm.serve_pspecs(cfg, mesh), mesh)
+        for n, t in tree_leaves_with_names(params):
+            out[name + "/p0/" + n] = t.numpy().copy()
+        d = steps.make_prefill_step(cfg, attn_impl="plain", mesh=mesh)(
+            params, batch)
+        shd.HBM_BYTES_BUDGET = budget
+        out[name + "/logits"] = d.to_local().numpy()
+        out[name + "/placements"] = np.array([repr(p) for p in d.placements])
+        continue
+    if kind == "forward":
         with torch.no_grad():
             d = lm.lm_logits(shd.shard_tree(full, pspecs, mesh), batch, cfg,
                              attn_impl="plain", mesh=mesh)
@@ -293,7 +337,8 @@ def _cfg(arch, over):
 def _inputs(tmp):
     rng = np.random.default_rng(0)
     inp = {}
-    for i, (name, arch, over, seq, _) in enumerate(FORWARD + TRAIN):
+    for i, (name, arch, over, seq, _) in enumerate(FORWARD + TRAIN
+                                                   + SERVE):
         cfg = _cfg(arch, over)
         params = jax_lm.init_model(cfg, jax.random.PRNGKey(i))
         for n, v in _named(jax.tree.map(np.asarray, params)):
@@ -318,9 +363,11 @@ def _run_all(tmp, deadline_s=420.0):
     to fail (a rank whose collective timed out, say) or the deadline
     stops the rest: they are killed.  Returns {name: (returncode, the
     tail of its stderr)}."""
-    cases = json.dumps([c + (False,) for c in FORWARD]
-                       + [c + (True,) for c in TRAIN])
-    fmt = dict(opt=OPT, witness=WITNESS_ARCH, one_device=ONE_DEVICE)
+    cases = json.dumps([c + ("forward",) for c in FORWARD]
+                       + [c + ("train",) for c in TRAIN]
+                       + [c + ("serve",) for c in SERVE])
+    fmt = dict(opt=OPT, witness=WITNESS_ARCH, one_device=ONE_DEVICE,
+               serve_budget=SERVE_BUDGET)
     env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
            "OMP_NUM_THREADS": "1"}
     tail = [str(tmp / "inputs.npz")]
@@ -545,3 +592,57 @@ def test_ranks_hold_only_their_slices(runs, case):
         assert pspecs["embed"] == ("model", "data")
     if over.get("shard_strategy") == "pure_dp":
         assert ospecs != pspecs
+
+
+def _serve_pspecs(arch, over, mesh_shape):
+    """The JAX package's PartitionSpecs of the serving weights with fsdp,
+    as its prefill cell gives them where ``serve_needs_fsdp`` holds."""
+    import functools
+    return _pspecs(arch, over, mesh_shape,
+                   functools.partial(jax_shd.param_pspecs, fsdp=True))
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SERVE])
+def test_prefill_on_serving_weights_matches_jax_mesh(runs, case):
+    """With the budget lowered, the JAX package's prefill cell places the
+    weights with fsdp; each rank's logits from its serving slices are its
+    block of the JAX package's (batch rows over ``data``, the vocabulary
+    over ``model``) within 1e-4."""
+    _, arch, over, _, shape = next(c for c in SERVE if c[0] == case)
+    assert bool(runs["jax"][case + "/serve_fsdp"])
+    want = runs["jax"][case + "/logits"]
+    spec = ("data", None, "model")
+    for coord, out in zip(_coords(runs, shape), runs["ranks"]):
+        np.testing.assert_allclose(out[case + "/logits"],
+                                   _local(want, spec, coord, shape),
+                                   rtol=1e-4, atol=1e-4)
+        assert list(out[case + "/placements"]) == ["Shard(dim=0)",
+                                                   "Shard(dim=2)"]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SERVE])
+def test_ranks_hold_only_their_serving_slices(runs, case):
+    """Each rank's leaves are bitwise its slices by the JAX package's
+    serving placement, which splits the width over ``data`` where the
+    training placement (``param_pspecs`` without fsdp) does not: the
+    embedding table, every block's matrices (the encoder's too) and, for
+    olmoe, the experts' (E, D, F) over (model, data)."""
+    _, arch, over, _, shape = next(c for c in SERVE if c[0] == case)
+    pspecs = _serve_pspecs(arch, over, shape)
+    plain = _pspecs(arch, over, shape)
+    over_data = [n for n, p in pspecs.items()
+                 if any("data" in (e if isinstance(e, tuple) else (e,))
+                        for e in p)]
+    assert "embed" in over_data and pspecs["embed"] == ("model", "data")
+    assert all("data" not in str(plain[n]) for n in over_data)
+    if arch == "olmoe-1b-7b":
+        assert any("/moe/" in n and pspecs[n][1:3] == ("model", "data")
+                   for n in over_data), over_data
+    if arch == "seamless-m4t-large-v2":
+        assert any(n.startswith("encoder/") for n in over_data)
+    for coord, out in zip(_coords(runs, shape), runs["ranks"]):
+        for n, spec in pspecs.items():
+            full = runs["inp"][f"{case}/p/{n}"]
+            np.testing.assert_array_equal(out[f"{case}/p0/{n}"],
+                                          _local(full, spec, coord, shape),
+                                          err_msg=n)
