@@ -28,6 +28,7 @@ from repro_torch.models import blocks as blocks_lib
 from repro_torch.models.common import (ParamSpec, ParamTree, PyTree,
                                        init_params, stack_specs, take_layer)
 from repro_torch.models.common import params_from_jax as tree_from_jax
+from repro_torch.obs import trace
 
 
 @dataclass(frozen=True)
@@ -137,8 +138,12 @@ def embed_all(model: Embedder, features: np.ndarray,
     of the paper's cost model); the features go up once, the embeddings come
     back once."""
     dev = next(model.parameters()).device
-    x = torch.as_tensor(np.asarray(features, np.float32), device=dev)
-    outs = [model(x[i:i + batch]) for i in range(0, len(x), batch)]
-    if not outs:
-        return np.zeros((0, model.cfg.embed_dim), np.float32)
-    return torch.cat(outs).cpu().numpy()
+    with trace.span("tasti.embed", records=len(features)):
+        x = torch.as_tensor(np.asarray(features, np.float32), device=dev)
+        trace.count("h2d_bytes", x.nbytes)
+        outs = [model(x[i:i + batch]) for i in range(0, len(x), batch)]
+        if not outs:
+            return np.zeros((0, model.cfg.embed_dim), np.float32)
+        out = torch.cat(outs).cpu().numpy()
+        trace.count("d2h_bytes", out.nbytes)
+    return out

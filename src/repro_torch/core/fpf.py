@@ -19,6 +19,7 @@ import torch
 from repro_torch.device import DeviceLike, as_device_tensor, resolve_device
 from repro_torch.kernels.distance_topk.ops import distance_topk
 from repro_torch.kernels.fpf_update.ops import fpf_update
+from repro_torch.obs import trace
 
 
 def _on_device(embeddings, device: DeviceLike) -> torch.Tensor:
@@ -26,7 +27,10 @@ def _on_device(embeddings, device: DeviceLike) -> torch.Tensor:
     names another; numpy goes to ``resolve_device(device)``."""
     if isinstance(embeddings, torch.Tensor) and device is None:
         return embeddings
-    return as_device_tensor(embeddings, resolve_device(device))
+    x = as_device_tensor(embeddings, resolve_device(device))
+    if not isinstance(embeddings, torch.Tensor):
+        trace.count("h2d_bytes", x.nbytes)
+    return x
 
 
 def fpf_select(embeddings, n_select: int, random_fraction: float = 0.1,
@@ -37,31 +41,35 @@ def fpf_select(embeddings, n_select: int, random_fraction: float = 0.1,
     ``embeddings`` is an (N, d) numpy array or tensor; the random mix uses
     numpy's generator with ``seed``, as the JAX package does.
     """
-    x = _on_device(embeddings, device).to(torch.float32)
-    n = len(x)
-    n_select = min(n_select, n)
-    rng = np.random.default_rng(seed)
-    n_rand = int(round(n_select * random_fraction))
-    n_fpf = n_select - n_rand
+    with trace.span("tasti.fpf", records=len(embeddings)) as sp:
+        x = _on_device(embeddings, device).to(torch.float32)
+        n = len(x)
+        n_select = min(n_select, n)
+        rng = np.random.default_rng(seed)
+        n_rand = int(round(n_select * random_fraction))
+        n_fpf = n_select - n_rand
+        sp.set(steps=max(n_fpf - 1, 0))
 
-    chosen = torch.empty(n_fpf, dtype=torch.int64, device=x.device)
-    chosen[0] = start if start is not None else int(rng.integers(n))
-    min_d2 = torch.full((n,), float("inf"), dtype=torch.float32,
-                        device=x.device)
-    idx = chosen[:1]
-    for t in range(1, n_fpf):
-        min_d2, nxt, _ = fpf_update(x, x.index_select(0, idx)[0], min_d2)
-        idx = nxt.reshape(1)
-        chosen[t] = nxt
-    chosen = chosen.cpu().numpy()
-    # mix random clusters (dedup while keeping count)
-    pool = np.setdiff1d(np.arange(n), chosen, assume_unique=False)
-    if n_rand and len(pool):
-        extra = rng.choice(pool, size=min(n_rand, len(pool)), replace=False)
-        out = np.concatenate([chosen, extra])
-    else:
-        out = chosen
-    return out.astype(np.int64)
+        chosen = torch.empty(n_fpf, dtype=torch.int64, device=x.device)
+        chosen[0] = start if start is not None else int(rng.integers(n))
+        min_d2 = torch.full((n,), float("inf"), dtype=torch.float32,
+                            device=x.device)
+        idx = chosen[:1]
+        for t in range(1, n_fpf):
+            min_d2, nxt, _ = fpf_update(x, x.index_select(0, idx)[0], min_d2)
+            idx = nxt.reshape(1)
+            chosen[t] = nxt
+        chosen = chosen.cpu().numpy()
+        trace.count("d2h_bytes", chosen.nbytes)
+        # mix random clusters (dedup while keeping count)
+        pool = np.setdiff1d(np.arange(n), chosen, assume_unique=False)
+        if n_rand and len(pool):
+            extra = rng.choice(pool, size=min(n_rand, len(pool)),
+                               replace=False)
+            out = np.concatenate([chosen, extra])
+        else:
+            out = chosen
+        return out.astype(np.int64)
 
 
 def max_intra_cluster_dist(embeddings, reps: np.ndarray,

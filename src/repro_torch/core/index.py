@@ -23,6 +23,7 @@ from repro_torch.core import schema as schema_lib
 from repro_torch.core.fpf import fpf_select
 from repro_torch.device import DeviceLike, as_device_tensor, resolve_device
 from repro_torch.kernels.distance_topk.ops import distance_topk
+from repro_torch.obs import trace
 
 
 @dataclass
@@ -89,22 +90,29 @@ class TastiIndex:
         n = len(embeddings)
         cost = cost or IndexCost()
         emb = as_device_tensor(embeddings, dev)
+        trace.count("h2d_bytes", emb.nbytes)
         if rep_selection == "fpf":
             rep_ids = fpf_select(emb, n_reps,
                                  random_fraction=random_fraction, seed=seed)
         else:
             rng = np.random.default_rng(seed)
             rep_ids = rng.choice(n, size=min(n_reps, n), replace=False)
-        annotations = annotate(rep_ids)
+        with trace.span("tasti.annotate", n=len(rep_ids)):
+            annotations = annotate(rep_ids)
         cost.target_invocations += len(rep_ids)
-        reps = emb.index_select(0, torch.as_tensor(
-            np.asarray(rep_ids, np.int64), device=dev))
-        d2, ids = distance_topk(emb, reps, min(k, len(rep_ids)))
+        with trace.span("tasti.topk", pairs=n * len(rep_ids)):
+            rep_dev = torch.as_tensor(np.asarray(rep_ids, np.int64),
+                                      device=dev)
+            trace.count("h2d_bytes", rep_dev.nbytes)
+            reps = emb.index_select(0, rep_dev)
+            d2, ids = distance_topk(emb, reps, min(k, len(rep_ids)))
+            topk_d2, topk_ids = d2.cpu().numpy(), ids.cpu().numpy()
+            trace.count("d2h_bytes", topk_d2.nbytes + topk_ids.nbytes)
         cost.distance_pairs += n * len(rep_ids)
         index = TastiIndex(embeddings=embeddings,
                            rep_ids=np.asarray(rep_ids),
                            annotations=list(annotations),
-                           topk_d2=d2.cpu().numpy(), topk_ids=ids.cpu().numpy(),
+                           topk_d2=topk_d2, topk_ids=topk_ids,
                            k=k, cost=cost, device=dev)
         index._emb_dev = emb
         index._topk_dev = (index.version, ids, d2)

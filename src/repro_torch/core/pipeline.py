@@ -31,6 +31,7 @@ from repro_torch.core.session import QuerySession, SessionResult
 from repro_torch.core.triplet import (TripletConfig, mine_triplets,
                                       train_embedder)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs import trace
 
 
 @dataclass
@@ -147,51 +148,63 @@ def build_tasti(workload, cfg: Optional[TastiConfig] = None,
                          f"{feats.shape[1]} features to {cfg.embed_dim}")
     stats: Dict[str, Any] = {}
 
-    # 1) pre-trained embeddings (generic self-supervision; no schema access)
-    if embed_params is None:
-        model = pretrain_embedder(feats, ecfg, steps=cfg.pretrain_steps,
-                                  seed=cfg.seed, device=dev)
-    else:
-        model = Embedder(ecfg)
-        model.load_state_dict(embed_params)
-        model.to(dev)
-    cost.embed_records += len(feats)
-    embeddings = embed_all(model, feats)
-
-    if variant == "T":
-        # 2) FPF-mine the training set, annotate with the target DNN
-        if use_fpf_mining:
-            train_ids = fpf_select(embeddings, cfg.n_train,
-                                   random_fraction=cfg.random_fraction,
-                                   seed=cfg.seed, device=dev)
+    with trace.span("tasti.build", records=len(feats), variant=variant):
+        # 1) pre-trained embeddings (generic self-supervision; no schema
+        # access)
+        if embed_params is None:
+            model = pretrain_embedder(feats, ecfg, steps=cfg.pretrain_steps,
+                                      seed=cfg.seed, device=dev)
         else:
-            rng = np.random.default_rng(cfg.seed)
-            train_ids = rng.choice(len(feats),
-                                   size=min(cfg.n_train, len(feats)),
-                                   replace=False)
-        cost.target_invocations += len(train_ids)  # annotations for closeness
-        rng = np.random.default_rng(cfg.seed + 1)
-        triples = mine_triplets(train_ids, workload.is_close, rng,
-                                max_triplets=cfg.triplet.max_triplets)
-        _, history = train_embedder(model, feats[train_ids], triples,
-                                    cfg.triplet)
-        cost.training_steps += cfg.triplet.steps
-        stats.update(n_triples=len(triples), triplet_losses=history)
-        # 3) embed all records with the trained embedder
+            with trace.span("tasti.load"):
+                model = Embedder(ecfg)
+                # the given leaves that load_state_dict brings to the host
+                trace.count("d2h_bytes", sum(v.nbytes for v in
+                                             embed_params.values()
+                                             if v.device.type != "cpu"))
+                model.load_state_dict(embed_params)
+                model.to(dev)
+                trace.count("h2d_bytes", sum(v.nbytes for v in
+                                             model.state_dict().values()))
+        cost.embed_records += len(feats)
         embeddings = embed_all(model, feats)
-    # the PT branch keeps the pre-trained embeddings: the JAX package embeds
-    # a second time with the same weights; the cost model counts both passes
-    cost.embed_records += len(feats)
 
-    def annotate(ids):
-        return workload.target_dnn_batch(np.asarray(ids, np.int64))
+        if variant == "T":
+            # 2) FPF-mine the training set, annotate with the target DNN
+            if use_fpf_mining:
+                train_ids = fpf_select(embeddings, cfg.n_train,
+                                       random_fraction=cfg.random_fraction,
+                                       seed=cfg.seed, device=dev)
+            else:
+                rng = np.random.default_rng(cfg.seed)
+                train_ids = rng.choice(len(feats),
+                                       size=min(cfg.n_train, len(feats)),
+                                       replace=False)
+            # annotations for closeness
+            cost.target_invocations += len(train_ids)
+            rng = np.random.default_rng(cfg.seed + 1)
+            triples = mine_triplets(train_ids, workload.is_close, rng,
+                                    max_triplets=cfg.triplet.max_triplets)
+            _, history = train_embedder(model, feats[train_ids], triples,
+                                        cfg.triplet)
+            cost.training_steps += cfg.triplet.steps
+            stats.update(n_triples=len(triples), triplet_losses=history)
+            # 3) embed all records with the trained embedder
+            embeddings = embed_all(model, feats)
+        # the PT branch keeps the pre-trained embeddings: the JAX package
+        # embeds a second time with the same weights; the cost model counts
+        # both passes
+        cost.embed_records += len(feats)
 
-    index = TastiIndex.build(
-        embeddings, cfg.n_reps, annotate, k=cfg.k,
-        random_fraction=cfg.random_fraction, seed=cfg.seed, cost=cost,
-        rep_selection="fpf" if use_fpf_clustering else "random", device=dev)
-    params = (embed_params if embed_params is not None and variant != "T"
-              else {k: v.detach().cpu() for k, v in
-                    model.state_dict().items()})
+        def annotate(ids):
+            return workload.target_dnn_batch(np.asarray(ids, np.int64))
+
+        index = TastiIndex.build(
+            embeddings, cfg.n_reps, annotate, k=cfg.k,
+            random_fraction=cfg.random_fraction, seed=cfg.seed, cost=cost,
+            rep_selection="fpf" if use_fpf_clustering else "random",
+            device=dev)
+        params = (embed_params if embed_params is not None and variant != "T"
+                  else {k: v.detach().cpu() for k, v in
+                        model.state_dict().items()})
     return TastiSystem(index=index, workload=workload, embed_params=params,
                        ecfg=ecfg, variant=variant, build_stats=stats)

@@ -46,6 +46,7 @@ from repro_torch.models.common import (DTYPES, ParamSpec, PyTree,
                                        init_params, params_from_jax, rmsnorm,
                                        rmsnorm_specs, stack_specs, take_layer,
                                        tree_leaves, unstack_layers)
+from repro_torch.obs import trace
 from repro_torch.parallel import collectives, tensor_parallel
 from repro_torch.parallel import sharding as shd
 
@@ -300,36 +301,38 @@ def _forward(params: PyTree, batch: Dict[str, torch.Tensor],
     the leaves of :data:`_TOP` alike."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    vision = batch.get("vision_embeds")
-    angles = _angles_for(cfg, b, s, tokens.device)
-    layout, start, tp, pspecs = None, 0, None, None
-    if mesh is not None:
-        layout = _constrain_batch(cfg, mesh, b, s)
-        start = layout.seq_start(s)
-        tokens = layout.local(tokens)
-        vision = None if vision is None else layout.rows(vision)
-        angles = layout.local(angles, batch=angles.shape[0] == b)
-        params = shd.to_local(params)
-        tp = tensor_parallel.model_group(mesh)
-        pspecs = (serve_pspecs(cfg, mesh) if serve
-                  else shd.param_pspecs(model_specs(cfg), cfg, mesh))
-    top = {k: params[k] for k in _TOP if k in params}
-    if pspecs is not None:
-        top = tensor_parallel.gather_fsdp(top, {k: pspecs[k] for k in top},
-                                          mesh)
-    h = (_embed_tokens(top, tokens) if tp is None
-         else _embed_tokens(top, tokens, cfg, tp))
-    h = _merge_vision(cfg, h, vision, start)
-    enc_out = None
-    if cfg.encoder_decoder:
-        enc = batch["enc_embeds"]
-        enc_out = encode(params, enc if layout is None else layout.rows(enc),
-                         cfg, attn_impl=attn_impl, layout=layout,
-                         pspecs=pspecs)
-    h, aux = _run_blocks(params, h, cfg, angles, causal=True,
-                         enc_out=enc_out, attn_impl=attn_impl, layout=layout,
-                         pspecs=pspecs)
-    return rmsnorm(top["final_norm"], h, cfg.norm_eps), aux, layout, top
+    with trace.span("lm.forward", tokens=b * s, layers=cfg.n_layers):
+        vision = batch.get("vision_embeds")
+        angles = _angles_for(cfg, b, s, tokens.device)
+        layout, start, tp, pspecs = None, 0, None, None
+        if mesh is not None:
+            layout = _constrain_batch(cfg, mesh, b, s)
+            start = layout.seq_start(s)
+            tokens = layout.local(tokens)
+            vision = None if vision is None else layout.rows(vision)
+            angles = layout.local(angles, batch=angles.shape[0] == b)
+            params = shd.to_local(params)
+            tp = tensor_parallel.model_group(mesh)
+            pspecs = (serve_pspecs(cfg, mesh) if serve
+                      else shd.param_pspecs(model_specs(cfg), cfg, mesh))
+        top = {k: params[k] for k in _TOP if k in params}
+        if pspecs is not None:
+            top = tensor_parallel.gather_fsdp(
+                top, {k: pspecs[k] for k in top}, mesh)
+        h = (_embed_tokens(top, tokens) if tp is None
+             else _embed_tokens(top, tokens, cfg, tp))
+        h = _merge_vision(cfg, h, vision, start)
+        enc_out = None
+        if cfg.encoder_decoder:
+            enc = batch["enc_embeds"]
+            enc_out = encode(params,
+                             enc if layout is None else layout.rows(enc),
+                             cfg, attn_impl=attn_impl, layout=layout,
+                             pspecs=pspecs)
+        h, aux = _run_blocks(params, h, cfg, angles, causal=True,
+                             enc_out=enc_out, attn_impl=attn_impl,
+                             layout=layout, pspecs=pspecs)
+        return rmsnorm(top["final_norm"], h, cfg.norm_eps), aux, layout, top
 
 
 def forward_hidden(params: PyTree, batch: Dict[str, torch.Tensor],

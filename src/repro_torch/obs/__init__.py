@@ -23,8 +23,8 @@ from repro_torch.obs.metrics import (
 )
 from repro_torch.obs.trace import (
     NULL_SPAN, NULL_TRACE, FlightRecorder, Span, Trace, Tracer, activate,
-    active_trace, add_timed_span, chrome_trace, chrome_traces, new_trace_id,
-    span, start_span,
+    active_trace, add_timed_span, chrome_trace, new_trace_id, span,
+    start_span,
 )
 
 __all__ = [
@@ -33,7 +33,7 @@ __all__ = [
     "series_key", "LATENCY_BUCKETS", "SIZE_BUCKETS",
     "Tracer", "Trace", "Span", "FlightRecorder", "NULL_TRACE", "NULL_SPAN",
     "activate", "active_trace", "span", "start_span", "add_timed_span",
-    "chrome_trace", "chrome_traces", "new_trace_id",
+    "chrome_trace", "new_trace_id",
 ]
 
 

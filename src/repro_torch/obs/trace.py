@@ -14,23 +14,33 @@ Completed traces land in a :class:`FlightRecorder` — a bounded ring buffer
 postmortems — and can be exported as Chrome trace-event JSON
 (``chrome://tracing`` / Perfetto) via :func:`chrome_trace`.
 
+While a torch profiler records and no request trace is active on the
+thread, the same helpers record into one process-level trace of bounded
+length instead (the index build's stages, the LM forward), read back by
+:func:`profiled_spans` on the profiler's clock.  The spans stay out of the
+profiler's own records.  :func:`count` adds a number (bytes moved between
+host and device) to the thread's innermost open span.
+
 Span timestamps are ``time.perf_counter()`` values (monotonic, comparable
-across threads on one host); each trace also records the wall-clock epoch
-at which it started so exports can be anchored to real time.
+across threads on one host); each trace also takes an anchor, the
+wall-clock and ``perf_counter`` nanoseconds read back to back, which
+places its spans in Unix time (:meth:`Trace.unix_ns`), the clock of the
+profiler's records.
 """
 from __future__ import annotations
 
 import itertools
+import sys
 import threading
 import time
 import uuid
 from collections import deque
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, List, Optional
 
 __all__ = [
     "Span", "Trace", "Tracer", "FlightRecorder", "NULL_SPAN", "NULL_TRACE",
     "new_trace_id", "span", "start_span", "add_timed_span", "activate",
-    "active_trace", "chrome_trace",
+    "active_trace", "chrome_trace", "count", "profiled_spans",
 ]
 
 _tls = threading.local()
@@ -130,26 +140,41 @@ NULL_SPAN = _NullSpan()
 class Trace:
     """A request's spans.  Threads append concurrently (the oracle pool
     records sub-batch spans from replica timings), so mutation is locked;
-    reads for export happen after completion."""
+    reads for export happen after completion.
 
-    __slots__ = ("trace_id", "name", "attrs", "started_unix", "t0", "t1",
-                 "spans", "root", "_lock", "_ids", "_finished")
+    ``capacity`` bounds the spans kept (the oldest dropped first, counted
+    in ``dropped``); None keeps them all."""
+
+    __slots__ = ("trace_id", "name", "attrs", "anchor", "t0", "t1",
+                 "spans", "root", "dropped", "_lock", "_ids", "_finished")
 
     def __init__(self, name: str, trace_id: Optional[str] = None,
-                 **attrs: Any):
+                 capacity: Optional[int] = None, **attrs: Any):
         self.trace_id = trace_id or new_trace_id()
         self.name = name
         self.attrs: Dict[str, Any] = dict(attrs)
-        self.started_unix = time.time()
-        self.t0 = time.perf_counter()
+        #: (Unix ns, perf_counter ns), read back to back
+        self.anchor = (time.time_ns(), time.perf_counter_ns())
+        self.t0 = self.anchor[1] / 1e9
         self.t1: Optional[float] = None
-        self.spans: List[Span] = []
+        self.spans: deque = deque(maxlen=capacity)
+        self.dropped = 0
         self._lock = threading.Lock()
         self._ids = itertools.count(1)
         self._finished = False
         self.root = Span(name, 0, None, t0=self.t0, attrs=self.attrs)
         with self._lock:
             self.spans.append(self.root)
+
+    @property
+    def started_unix(self) -> float:
+        """The wall-clock second at which the trace started."""
+        return self.anchor[0] / 1e9
+
+    def unix_ns(self, t: float) -> int:
+        """``perf_counter`` second ``t`` (a span's ``t0`` or ``t1``) as Unix
+        nanoseconds, the clock of torch.profiler's ``start_ns``."""
+        return self.anchor[0] + round(t * 1e9) - self.anchor[1]
 
     @property
     def finished(self) -> bool:
@@ -169,6 +194,8 @@ class Trace:
         s = Span(name, sid, 0 if parent_id is None else parent_id,
                  t0=t0, attrs=dict(attrs) if attrs else None)
         with self._lock:
+            if len(self.spans) == self.spans.maxlen:
+                self.dropped += 1
             self.spans.append(s)
         return s
 
@@ -280,18 +307,56 @@ class activate:
 
 
 def _pop_span(s: Span) -> None:
-    stack = getattr(_tls, "stack", None)
-    if stack and stack[-1] is s:
-        stack.pop()
+    for stack in (getattr(_tls, "stack", None), getattr(_tls, "pstack", None)):
+        if stack and stack[-1] is s:
+            stack.pop()
+            return
+
+
+#: spans the process-level trace keeps while a profiler records
+PROFILED_CAPACITY = 4096
+_profiled: Optional[Trace] = None
+_profiled_lock = threading.Lock()
+
+
+def _profiling() -> bool:
+    """Whether a torch profiler records (torch's own flag; never imports
+    torch: without it no profiler can run)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _profiled_trace() -> Trace:
+    global _profiled
+    if _profiled is None:
+        with _profiled_lock:
+            if _profiled is None:
+                _profiled = Trace("profiled", capacity=PROFILED_CAPACITY)
+    return _profiled
+
+
+def _target():
+    """(trace, nesting stack) that the thread's spans go to: the active
+    request trace; else, while a profiler records, the process-level
+    trace; else (None, None)."""
+    trace = getattr(_tls, "trace", None)
+    if trace is not None:
+        return trace, getattr(_tls, "stack", None)
+    if not _profiling():
+        return None, None
+    stack = getattr(_tls, "pstack", None)
+    if stack is None:
+        stack = _tls.pstack = []
+    return _profiled_trace(), stack
 
 
 def span(name: str, **attrs: Any):
-    """Start a nested span under the thread's active trace (no-op span if
-    none).  Use as ``with span("broker.flush", n=5) as sp: ...``."""
-    trace = getattr(_tls, "trace", None)
+    """Start a nested span under the thread's active trace, or under the
+    process-level trace while a profiler records (no-op span if
+    neither).  Use as ``with span("broker.flush", n=5) as sp: ...``."""
+    trace, stack = _target()
     if trace is None:
         return NULL_SPAN
-    stack = getattr(_tls, "stack", None)
     parent = stack[-1].span_id if stack else 0
     s = trace.new_span(name, parent_id=parent, **attrs)
     if stack is not None:
@@ -302,23 +367,46 @@ def span(name: str, **attrs: Any):
 def start_span(name: str, **attrs: Any):
     """Like :func:`span` but NOT pushed on the nesting stack — for spans
     ended manually (possibly on another thread) via ``.end()``."""
-    trace = getattr(_tls, "trace", None)
+    trace, stack = _target()
     if trace is None:
         return NULL_SPAN
-    stack = getattr(_tls, "stack", None)
     parent = stack[-1].span_id if stack else 0
     return trace.new_span(name, parent_id=parent, **attrs)
 
 
 def add_timed_span(name: str, t0: float, t1: float, **attrs: Any):
-    """Attach an already-timed interval to the active trace (no-op if
+    """Attach an already-timed interval to the thread's trace (no-op if
     none).  Parent is the thread's current span."""
-    trace = getattr(_tls, "trace", None)
+    trace, stack = _target()
     if trace is None:
         return NULL_SPAN
-    stack = getattr(_tls, "stack", None)
     parent = stack[-1].span_id if stack else 0
     return trace.add_timed_span(name, t0, t1, parent_id=parent, **attrs)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to attribute ``name`` of the thread's innermost open span
+    (e.g. ``h2d_bytes``, from a tensor's ``nbytes``: no device sync); a
+    no-op where no span is open."""
+    _, stack = _target()
+    if stack:
+        attrs = stack[-1].attrs
+        attrs[name] = attrs.get(name, 0) + n
+
+
+def profiled_spans() -> List[Dict[str, Any]]:
+    """The finished spans recorded while a profiler recorded and no
+    request trace was active, oldest first, at most
+    :data:`PROFILED_CAPACITY`: each span's ``to_dict()`` with
+    ``start_ns`` and ``end_ns``, its interval in Unix nanoseconds (the
+    clock of the profiler's records).  The buffer is not cleared."""
+    trace = _profiled
+    if trace is None:
+        return []
+    with trace._lock:
+        spans = [s for s in trace.spans if s.span_id and s.t1 is not None]
+    return [dict(s.to_dict(), start_ns=trace.unix_ns(s.t0),
+                 end_ns=trace.unix_ns(s.t1)) for s in spans]
 
 
 # ---------------------------------------------------------------------------
@@ -422,17 +510,3 @@ def chrome_trace(trace: Trace) -> Dict[str, Any]:
         },
     }
 
-
-def chrome_traces(traces: Iterable[Trace]) -> Dict[str, Any]:
-    """Merge several traces into one Chrome trace document (one ``pid``
-    per trace so they stack as separate process tracks)."""
-    events: List[Dict[str, Any]] = []
-    meta: List[Dict[str, Any]] = []
-    for pid, t in enumerate(traces, start=1):
-        doc = chrome_trace(t)
-        for ev in doc["traceEvents"]:
-            ev["pid"] = pid
-        events.extend(doc["traceEvents"])
-        meta.append(doc["otherData"])
-    return {"traceEvents": events, "displayTimeUnit": "ms",
-            "otherData": {"traces": meta}}
