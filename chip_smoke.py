@@ -20,7 +20,12 @@
    asserts which path its input takes; distance_topk's tc route also at a
    crack's C, at C 7,001, k 1, in bf16 and on near-duplicate records
    (against float64); propagate's top1 prescale bit for bit against
-   tie_break_prescale.
+   tie_break_prescale; rmsnorm at phi3's prefill rows, the embedder's
+   batch, a qk-norm and decode's 1-8 rows (RMSNORM_CASES), within an ulp
+   or two, beside its bytes bound and PyTorch's own ``rms_norm``.  Its
+   launches are then counted phase by phase, the mesh phases' by their
+   ranks: above zero wherever a model prefills or decodes, zero in the
+   training steps (which take the plain norm).
 3. tasti: builds a TASTI index (``build_tasti``, variant PT, seeded random
    embedder weights) over the synthetic night-street video at 1M frames and
    serves a three-query session twice through a cracking ``QueryEngine``
@@ -112,7 +117,8 @@
    128, seeded bf16 weights, 27.3 GiB): the kernel route against the plain
    route at 8,192 tokens (compare_routes; float32 at 8 of the 40 layers);
    phi3_prefill (one 32,768-token prompt through ``make_prefill_step``: 40
-   launches, all tc, with launch/analytic.py's FLOPs); then the kernel
+   launches, all tc, and 81 rmsnorm launches, with launch/analytic.py's
+   FLOPs); then the kernel
    alone at the prefill's shape, heads 0, 3, 4, 36 and 39 each held
    against the plain version on that head and its KV head.
 13. The mesh layer (no kernel of its own), after the card is freed:
@@ -178,8 +184,8 @@
    dryrun_phi3 (phi3-medium-14b x prefill_32k at batch 1 on the (1, 1)
    mesh, the kernel route): its argument bytes equal phi3_prefill's
    weights and tokens exactly, its traced flash_attention calls the
-   phase's 40 tc launches, its predicted peak within DRYRUN_PEAK_BOUNDS
-   of the phase's, and the roofline's bound (H100 constants) against
+   phase's 40 tc launches and its traced rmsnorm calls the phase's 81,
+   its predicted peak within DRYRUN_PEAK_BOUNDS of the phase's, and the roofline's bound (H100 constants) against
    the phase's wall; dryrun_train (h2o-danube-3-4b x train_4k at 1 x
    4,096, lm_train's cell): argument bytes (weights, moments, step,
    batch) equal lm_train's, peak within its bound; dryrun_production
@@ -595,6 +601,87 @@ def check_fpf_update(dev, n: int, d: int):
     return {"name": "fpf_update", "shape": [n, d], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
             "library_ms": None}
+
+
+#: (label, rows, d, dtype, most ulps, least share bitwise equal) of
+#: check_rmsnorm: phi3-medium-14b's prefill rows, the transformer
+#: embedder's batch of 4,096 records x 8 tokens, a qk-norm over 8,192
+#: tokens x 32 heads of 128, decode's rows at phi3's width.  float32 keeps
+#: the ulps the sum's order moves: over 256 terms the mean moves by an ulp
+#: or two, rsqrtf and the two products carry that on (4 read on the card)
+RMSNORM_CASES = (
+    ("phi3", 32768, 5120, torch.bfloat16, 1, 0.99),
+    ("embedder", 32768, 256, torch.float32, 4, 0.0),
+    ("qk_norm", 8192 * 32, 128, torch.bfloat16, 1, 0.99),
+    *((f"decode{r}", r, 5120, torch.bfloat16, 1, 0.99) for r in range(1, 9)),
+)
+
+
+def check_rmsnorm(dev):
+    """The rmsnorm kernel against its plain version at each shape of
+    RMSNORM_CASES (within the case's ulps, the case's share of elements
+    bitwise equal), one launch a call; the wrapper's CUDA-event time, the
+    kernel's own device time, the plain version's time and the bytes
+    bound (x read and y written once, the scale once); and PyTorch's own
+    ``rms_norm``, where the installed version has it, timed and held to the
+    case's limits against the plain version (recorded, not asserted)."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, traced_cost
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    library = getattr(torch.nn.functional, "rms_norm", None)
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for label, rows, d, dtype, most, share in RMSNORM_CASES:
+        x = (torch.randn(rows, d, device=dev, generator=g) * 2).to(dtype)
+        scale = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dtype)
+        before = rmsnorm.launches
+        with torch.no_grad():
+            got = rmsnorm(x, scale, 1e-6)
+        want = rmsnorm_ref(x, scale, 1e-6)
+        torch.cuda.synchronize()
+        assert rmsnorm.launches == before + 1, label
+        u = ulps(got, want)
+        worst, equal = int(u.max()), float((u == 0).float().mean())
+        assert worst <= most and equal >= share, (label, worst, equal)
+        lib = None
+        if library is not None:         # held to the same limits, not asserted
+            u = ulps(library(x, (d,), scale, 1e-6), want)
+            lib = {"max_ulps": int(u.max()),
+                   "bitwise_share": float((u == 0).float().mean())}
+            lib["within_limits"] = (lib["max_ulps"] <= most
+                                    and lib["bitwise_share"] >= share)
+        del got, want, u
+        with torch.no_grad():
+            call = lambda: rmsnorm(x, scale, 1e-6)  # noqa: E731
+            ms = time_ms(call, 50)
+            own = own_time(call, 20, "rmsnorm_kernel")
+            plain_ms = time_ms(lambda: rmsnorm_ref(x, scale, 1e-6), 10)
+            if lib is not None:
+                lib["ms"] = time_ms(lambda: library(x, (d,), scale, 1e-6),
+                                    50)
+        assert own["kernels"] and all("rmsnorm_kernel" in k
+                                      for k in own["kernels"]), own
+        flops, nbytes = traced_cost(rows, d, x.element_size(),
+                                    scale.element_size())
+        b, by = bound_ms(nbytes, flops)
+        log(f"rmsnorm[{label}] ({rows}, {d}) {str(dtype)[6:]}: at most "
+            f"{worst} ulp (allowed {most}), {100 * equal:.3f}% bitwise "
+            f"equal; kernel {ms:.4f} ms (own device time "
+            f"{own['main_device_ms']:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"bound {b:.4f} ms ({by}): {100 * b / own['main_device_ms']:.1f}"
+            f"% of it; torch.nn.functional.rms_norm {lib}")
+        out.append({"label": label, "shape": [rows, d],
+                    "dtype": str(dtype)[6:], "max_ulps": worst,
+                    "bitwise_share": equal, "ms": ms,
+                    "device_ms": own["main_device_ms"], "plain_ms": plain_ms,
+                    "bound_ms": b, "bound_by": by, "library": lib,
+                    "library_ms": lib and lib["ms"]})
+        del x
+    torch.cuda.empty_cache()
+    return {"name": "rmsnorm", "shape": out[0]["shape"],
+            "max_abs_err": None, "ms": out[0]["ms"],
+            "device_ms": out[0]["device_ms"], "plain_ms": out[0]["plain_ms"],
+            "bound_ms": out[0]["bound_ms"], "bound_by": out[0]["bound_by"],
+            "library_ms": out[0]["library_ms"], "cases": out}
 
 
 def check_propagate(dev, n: int, c: int, k: int, n_classes: int = 9):
@@ -1853,11 +1940,15 @@ LM_LARGE_G = 0.1
 LM_FLIP_SHARE = 1e-3
 
 
-def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Distance in bf16 ulps between two bf16 tensors (int32)."""
-    def ordered(x):
-        i = x.contiguous().view(torch.int16).to(torch.int32)
-        return torch.where(i < 0, -(i & 0x7FFF), i)
+def ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of their floating type (float32,
+    float16, bfloat16)."""
+    bits = 8 * a.element_size()
+    ints = {16: torch.int16, 32: torch.int32}[bits]
+
+    def ordered(t):
+        i = t.contiguous().view(ints).to(torch.int64)
+        return torch.where(i < 0, -(i & (2 ** (bits - 1) - 1)), i)
     return (ordered(a) - ordered(b)).abs()
 
 
@@ -1928,7 +2019,7 @@ def check_lm_train_step(dev, cfg, opt, batch) -> dict:
         """Share of leaf i's elements (those of a large reference gradient
         unless ``every``) more than one bf16 ulp from the reference."""
         want = adamw_step1_reference(p0[i], g, ref_norm, opt, sign * lr_i)
-        far = bf16_ulps(got[i], want.to(torch.bfloat16)) > 1
+        far = ulps(got[i], want.to(torch.bfloat16)) > 1
         if not every:
             a = g32[i].abs()
             far = far[a >= LM_LARGE_G * a.square().mean().sqrt()]
@@ -1947,10 +2038,10 @@ def check_lm_train_step(dev, cfg, opt, batch) -> dict:
         g_step = mu[i].double() / (1 - opt.b1)          # clipped already
         redo = adamw_step1_reference(p0[i], g_step, opt.clip_norm, opt, lr)
         a = g.abs()
-        far = (bf16_ulps(got[i], want.to(torch.bfloat16)) > 1) & (
+        far = (ulps(got[i], want.to(torch.bfloat16)) > 1) & (
             a >= LM_LARGE_G * a.square().mean().sqrt())
         idx = far.nonzero()
-        redo_ulps = bf16_ulps(got[i][far], redo.to(torch.bfloat16)[far])
+        redo_ulps = ulps(got[i][far], redo.to(torch.bfloat16)[far])
         sign_flips = int((torch.sign(g_step[far]) != torch.sign(
             g[far].double())).sum())
         shown = []
@@ -1961,9 +2052,9 @@ def check_lm_train_step(dev, cfg, opt, batch) -> dict:
                 "g_step": float(g_step[at]), "before": float(p0[i][at]),
                 "after": float(got[i][at]), "want": float(want[at]),
                 "redo": float(redo[at]),
-                "ulps_want": int(bf16_ulps(got[i][at], want[at].to(
+                "ulps_want": int(ulps(got[i][at], want[at].to(
                     torch.bfloat16))),
-                "ulps_redo": int(bf16_ulps(got[i][at], redo[at].to(
+                "ulps_redo": int(ulps(got[i][at], redo[at].to(
                     torch.bfloat16)))})
         out = {"n": len(idx), "redo_within_1_ulp": int(
             (redo_ulps <= 1).sum()), "gradient_sign_flips": sign_flips,
@@ -2067,6 +2158,7 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
     from repro_torch.data.pipeline import TokenDataset
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          reset_launches)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.models import attention, lm
     from repro_torch.models.common import tree_leaves
     from repro_torch.optim.adamw import OptimizerConfig, init_opt_state
@@ -2122,6 +2214,7 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
                for p in leaves]
     step_fn = make_train_step(cfg, opt, attn_impl="plain")
     reset_launches()
+    norms = rmsnorm.launches
     torch.cuda.reset_peak_memory_stats()
     rows = []
     with Phase("lm_train", profile) as ph:
@@ -2140,6 +2233,7 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
             assert math.isfinite(loss) and math.isfinite(gnorm), rows[-1]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     train_launches = flash_attention.launches
+    train_norms = rmsnorm.launches - norms
     changed = sum(not torch.equal(p.detach().reshape(-1)[
         ::max(1, p.numel() // 65536)], s) for p, s in zip(leaves, samples))
     warm = rows[1:] or rows
@@ -2148,12 +2242,14 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
         f"{ph.seconds:.3f} s; {step_s:.3f} s a step after the first "
         f"({seq / step_s:.1f} tok/s); peak device memory {peak:.2f} GiB; "
         f"{changed} of {len(leaves)} leaves changed; flash launches in the "
-        f"steps {train_launches} (plain attention); step-1 loss "
+        f"steps {train_launches} (plain attention), rmsnorm launches "
+        f"{train_norms} (the plain norm, by the route); step-1 loss "
         f"{rows[0]['loss']:.5f}, plain forward {loss_plain:.5f}, kernel "
         f"(tc) forward {loss_kernel:.5f}: mean |d token loss| kernel vs plain "
         f"{d_kernel:.4g}, witness (keys reversed) vs plain {d_witness:.4g}")
     assert changed == len(leaves), (changed, len(leaves))
-    assert train_launches == 0
+    assert train_launches == 0 and train_norms == 0, (train_launches,
+                                                      train_norms)
     assert d_kernel <= WITNESS_RATIO * d_witness, (d_kernel, d_witness)
     assert abs(loss_kernel - rows[0]["loss"]) <= \
         abs(loss_plain - rows[0]["loss"]) + WITNESS_RATIO * d_witness, \
@@ -2161,7 +2257,8 @@ def run_lm_train(dev, seq: int, steps: int, profile) -> dict:
     del params, opt_state, leaves, samples, step_fn
     torch.cuda.empty_cache()
     return {"model": cfg.name, "params": n_params, "batch": 1, "seq": seq,
-            "steps": rows, "seconds_per_step": step_s,
+            "steps": rows, "rmsnorm_launches_in_steps": train_norms,
+            "seconds_per_step": step_s,
             "tokens_s": seq / step_s, "peak_gib": peak,
             "argument_bytes": arg_bytes,
             "loss_check": {"kernel": loss_kernel, "plain": loss_plain,
@@ -3027,6 +3124,7 @@ def run_phi3(dev, prefill_len: int, compare_len: int, profile) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          reset_launches)
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.launch import analytic
     from repro_torch.models import lm
     from repro_torch.train.steps import make_prefill_step
@@ -3055,11 +3153,13 @@ def run_phi3(dev, prefill_len: int, compare_len: int, profile) -> dict:
 
     flops = analytic.forward_cost(cfg, 1, prefill_len).flops
     reset_launches()
+    norms = rmsnorm.launches
     torch.cuda.reset_peak_memory_stats()
     with Phase("phi3_prefill", profile) as ph:
         logits = prefill(params, {"tokens": tokens})
     launches = flash_attention.launches
     paths = dict(flash_attention.launches_by_path)
+    norms = rmsnorm.launches - norms
     peak = peak_gib()                       # before isfinite's temporaries
     finite = bool(torch.isfinite(logits).all())
     log(f"phase phi3_prefill: {cfg.name}, {prefill_len} tokens in "
@@ -3067,16 +3167,19 @@ def run_phi3(dev, prefill_len: int, compare_len: int, profile) -> dict:
         f"{flops:.4e} flops by launch/analytic.py's forward_cost, "
         f"{flops / ph.seconds / 1e12:.1f} TFLOP/s), logits "
         f"{tuple(logits.shape)} finite={finite}, flash launches {launches} "
-        f"{paths}, peak device memory {peak:.2f} GiB")
+        f"{paths}, rmsnorm launches {norms}, peak device memory "
+        f"{peak:.2f} GiB")
     assert logits.shape == (1, prefill_len, cfg.padded_vocab), logits.shape
     assert finite
     assert launches == n_attn, (launches, n_attn)
     assert paths == {"simt": 0, "tc": n_attn, "short": 0}, paths
+    assert norms == 2 * cfg.n_layers + 1, norms
     del logits, params
     free_card()
     out.update(seconds=ph.seconds, tokens_s=prefill_len / ph.seconds,
                analytic_flops=flops, tflops_s=flops / ph.seconds / 1e12,
-               launches=launches, launches_by_path=paths, peak_gib=peak)
+               launches=launches, launches_by_path=paths,
+               rmsnorm_launches=norms, peak_gib=peak)
     # the kernel alone at the prefill's shape, held head by head
     out["flash_full"] = time_flash_full(dev, cfg, prefill_len,
                                         heads=PHI3_HELD_HEADS)
@@ -3317,14 +3420,16 @@ def _par_seq_dp(dev, cfg, rank: int, world: int, prefill_len: int,
 
     # full length, timed; each rank keeps its shard's last SEQ_TAIL rows
     _reset_peak(dev)
+    norms = _norm_launches()
     dist.barrier()
     t0 = time.perf_counter()
     logits = step(params, {"tokens": tokens}).to_local()
     _sync(dev)
     seconds = time.perf_counter() - t0
+    norms = _norm_launches() - norms
     peak = _peak(dev)
     finite = bool(torch.isfinite(logits).all())
-    times = torch.tensor([seconds, peak, float(finite)], device=dev)
+    times = torch.tensor([seconds, peak, float(finite), norms], device=dev)
     every = collectives.all_gather_cat(times[None], mesh, ("model",),
                                        0).cpu()
     tails = collectives.all_gather_cat(logits[:, -SEQ_TAIL:], mesh,
@@ -3350,7 +3455,8 @@ def _par_seq_dp(dev, cfg, rank: int, world: int, prefill_len: int,
     out.update(seconds=float(every[:, 0].max()),
                seconds_by_rank=every[:, 0].tolist(),
                peak_gib_by_rank=every[:, 1].tolist(),
-               finite=bool(every[:, 2].all()))
+               finite=bool(every[:, 2].all()),
+               norms_by_rank=[int(n) for n in every[:, 3]])
     out["tokens_s"] = prefill_len / out["seconds"]
     dist.barrier()
 
@@ -3658,6 +3764,8 @@ def run_parallel(opts: dict) -> dict:
         assert cmp["mean_abs"] <= BF16_LOGITS_MEAN, cmp
     assert sq["f32_vs_plain"]["max_abs"] <= SEQ_F32_TOL, sq["f32_vs_plain"]
     assert sq["finite"], sq
+    assert all(n > 0 if opts["device"] == "cuda" else n == 0
+               for n in sq["norms_by_rank"]), sq["norms_by_rank"]
     assert pp["bitwise_per_microbatch"] and pp["finite"], pp
     assert pp["whole_batch_max_rel"] <= PIPE_BF16_REL, pp
     assert pp["f32_max_abs"] <= PIPE_F32_TOL, pp
@@ -3761,6 +3869,12 @@ def _tp_flash_counts():
     return flash_attention.launches, dict(flash_attention.launches_by_path)
 
 
+def _norm_launches() -> int:
+    """rmsnorm kernel launches in this process so far."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    return rmsnorm.launches
+
+
 def _tp_prefill(dev, cfg, rank: int, world: int, mesh_shape: tuple,
                 rows: int, seq: int) -> dict:
     """A prefill through ``make_prefill_step(cfg, mesh=)`` under megatron
@@ -3847,6 +3961,7 @@ def _tp_prefill(dev, cfg, rank: int, world: int, mesh_shape: tuple,
     _free(dev)
     _reset_peak(dev)
     reset_launches()
+    norms = _norm_launches()
     dist.barrier()
     with wire.count_collectives() as coll:
         t0 = time.perf_counter()         # one run, timed and held
@@ -3854,6 +3969,7 @@ def _tp_prefill(dev, cfg, rank: int, world: int, mesh_shape: tuple,
         _sync(dev)
         seconds = time.perf_counter() - t0
     launches, paths = _tp_flash_counts()
+    norms = _norm_launches() - norms
     peak = _peak(dev)
     finite = bool(torch.isfinite(logits).all())
     shape = list(logits.shape)
@@ -3869,7 +3985,7 @@ def _tp_prefill(dev, cfg, rank: int, world: int, mesh_shape: tuple,
     del logits, got, ref
     _free(dev)
     stats = torch.tensor([seconds, peak, float(finite), local_bytes,
-                          launches, paths["tc"]], device=dev,
+                          launches, paths["tc"], norms], device=dev,
                          dtype=torch.float64)
     every = collectives.all_gather_cat(stats[None], mesh, every_dim,
                                        0).cpu()
@@ -3889,6 +4005,7 @@ def _tp_prefill(dev, cfg, rank: int, world: int, mesh_shape: tuple,
                bytes_by_rank=[int(b) for b in every[:, 3]],
                launches_by_rank=[int(n) for n in every[:, 4]],
                tc_by_rank=[int(n) for n in every[:, 5]],
+               norms_by_rank=[int(n) for n in every[:, 6]],
                local_logits_shape=shape)
     out["tokens_s"] = out["tokens"] / out["seconds"]
     dist.barrier()
@@ -3949,6 +4066,7 @@ def _tp_ep_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
         params = init_local(c, mesh, 1, dev)
         local_bytes = _tp_bytes(params)
         reset_launches()
+        norms = _norm_launches()
         dist.barrier()
         t0 = time.perf_counter()
         with record_routing() as rec, count_drops() as drops:
@@ -3956,6 +4074,7 @@ def _tp_ep_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
         _sync(dev)
         seconds = time.perf_counter() - t0
         launches, paths = _tp_flash_counts()
+        norms = _norm_launches() - norms
         peak = _peak(dev)
         res = {"drops": [int(d) for d in drops],
                "flipped_tokens": int((~routing_agrees(
@@ -3977,7 +4096,7 @@ def _tp_ep_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
         del full_logits, params
         _free(dev)
         stats = torch.tensor([seconds, peak, float(finite), local_bytes,
-                              launches, paths["tc"]], device=dev,
+                              launches, paths["tc"], norms], device=dev,
                              dtype=torch.float64)
         every = collectives.all_gather_cat(stats[None], mesh, ("model",),
                                            0).cpu()
@@ -3987,7 +4106,8 @@ def _tp_ep_prefill(dev, cfg, rank: int, world: int, seq: int) -> dict:
                    finite=bool(every[:, 2].all()),
                    bytes_by_rank=[int(b) for b in every[:, 3]],
                    launches_by_rank=[int(n) for n in every[:, 4]],
-                   tc_by_rank=[int(n) for n in every[:, 5]])
+                   tc_by_rank=[int(n) for n in every[:, 5]],
+                   norms_by_rank=[int(n) for n in every[:, 6]])
         res["tokens_s"] = seq / res["seconds"]
         out[strategy] = res
         dist.barrier()
@@ -4070,6 +4190,7 @@ def _tp_megatron_train(dev, cfg, rank: int, world: int, seq: int) -> dict:
     train = steps.make_train_step(cfg, opt, mesh=mesh)
     _reset_peak(dev)
     reset_launches()
+    norms = _norm_launches()
     dist.barrier()
     t0 = time.perf_counter()
     with mock.patch.object(steps, "adamw_update", spy):
@@ -4077,11 +4198,12 @@ def _tp_megatron_train(dev, cfg, rank: int, world: int, seq: int) -> dict:
     _sync(dev)
     seconds = time.perf_counter() - t0
     launches, _ = _tp_flash_counts()
+    norms = _norm_launches() - norms
     peak = _peak(dev)
     loss = float(metrics["loss"])
     grads = seen.pop("grads")
     stats = torch.tensor([seconds, peak, loss, local["params"],
-                          local["moments"], launches], device=dev,
+                          local["moments"], launches, norms], device=dev,
                          dtype=torch.float64)
     whole = collectives.all_gather_cat(stats[None], mesh, ("model",), 0)
     every = collectives.all_gather_cat(whole, mesh, ("data",), 0).cpu()
@@ -4127,6 +4249,7 @@ def _tp_megatron_train(dev, cfg, rank: int, world: int, seq: int) -> dict:
                param_bytes_by_rank=[int(b) for b in every[:, 3]],
                moment_bytes_by_rank=[int(b) for b in every[:, 4]],
                launches_by_rank=[int(n) for n in every[:, 5]],
+               norms_by_rank=[int(n) for n in every[:, 6]],
                grad_cos=cos, grad_rel_err=rel, grad_norm_ratio=ratio,
                loss=loss, grad_norm=float(metrics["grad_norm"]))
     out["tokens_s"] = TP_TRAIN_BATCH * seq / out["seconds"]
@@ -4353,6 +4476,7 @@ def run_tensor_parallel(opts: dict) -> dict:
             assert r["tc_by_rank"] == r["launches_by_rank"] and all(
                 n == (n_attn or n) and n > 0
                 for n in r["launches_by_rank"]), r
+            assert all(n > 0 for n in r["norms_by_rank"]), r
     # fsdp on (2, 2): the width over data, gathered a block at a time (on
     # that mesh no other all-gather: a rank's 5 KV heads are whole)
     assert sp["serve_needs_fsdp"] and sp["gather_bytes_rank0"] > 0, sp
@@ -4365,6 +4489,8 @@ def run_tensor_parallel(opts: dict) -> dict:
         if cuda and strategy == "megatron":
             assert r["tc_by_rank"] == r["launches_by_rank"] and all(
                 n > 0 for n in r["launches_by_rank"]), r
+        if cuda:
+            assert all(n > 0 for n in r["norms_by_rank"]), (strategy, r)
     assert quarter(ep["megatron"]["bytes_by_rank"], ep["whole_bytes"]), ep
     loss = mt["one_process_loss"]
     assert abs(mt["loss"] - loss) <= abs(loss) * 2 ** -8, mt
@@ -4378,6 +4504,7 @@ def run_tensor_parallel(opts: dict) -> dict:
     norm = mt["one_process_grad_norm"]
     assert abs(mt["grad_norm"] - norm) <= norm_rel * norm, mt
     assert mt["launches_by_rank"] == [0] * TP_RANKS, mt
+    assert mt["norms_by_rank"] == [0] * TP_RANKS, mt      # the plain norm
     return out
 
 
@@ -4577,6 +4704,7 @@ def _sd_session(cfg, ph: SdPhase, params, dev, mesh=None) -> dict:
     _free(dev)
     _reset_peak(dev)
     reset_launches()
+    norms = _norm_launches()
     if mesh is not None:
         dist.barrier()
     out = {"prefill_s": 0.0}
@@ -4607,7 +4735,8 @@ def _sd_session(cfg, ph: SdPhase, params, dev, mesh=None) -> dict:
     out.update(logits=torch.cat(logits, dim=1), caches=caches, seeded=seeded,
                ms=times, peak_gib=_peak(dev),
                launches=flash_attention.launches,
-               tc=flash_attention.launches_by_path["tc"])
+               tc=flash_attention.launches_by_path["tc"],
+               norms=_norm_launches() - norms)
     return out
 
 
@@ -4792,7 +4921,8 @@ def _sd_phase(dev, ph: SdPhase, rank: int, world: int, out_dir: str) -> dict:
     stats = torch.tensor([float(np.median(run["ms"][1:])), run["ms"][0],
                           run["prefill_s"], run["peak_gib"], float(finite),
                           local_bytes, cache_bytes, run["launches"],
-                          run["tc"]], device=dev, dtype=torch.float64)
+                          run["tc"], run["norms"]], device=dev,
+                         dtype=torch.float64)
     del run
     _free(dev)
     p32 = _sd_cut(params, f32)
@@ -4825,6 +4955,7 @@ def _sd_phase(dev, ph: SdPhase, rank: int, world: int, out_dir: str) -> dict:
                expected_cache_bytes=int(want_cache),
                launches_by_rank=[int(x) for x in every[:, 7]],
                tc_by_rank=[int(x) for x in every[:, 8]],
+               norms_by_rank=[int(x) for x in every[:, 9]],
                caches_by_rank=caches_by_rank, seconds=seconds,
                expected_bytes=int(sum(
                    math.prod(hi - lo for lo, hi in ranges)
@@ -4980,6 +5111,8 @@ def run_sharded_decode(opts: dict) -> dict:
         want = ph.config().n_encoder_layers if cuda else 0
         assert r["launches_by_rank"] == [want] * SD_RANKS, r
         assert r["tc_by_rank"] == r["launches_by_rank"], r
+        assert all(n > 0 if cuda else n == 0 for n in r["norms_by_rank"]), (
+            name, r["norms_by_rank"])
     return out
 
 
@@ -5063,8 +5196,10 @@ def dryrun_mesh_cell(arch: str, shape_name: str, mesh_shape: tuple,
 def check_serve_fsdp_dryrun(r: dict, phase: dict) -> dict:
     """dryrun_serve_fsdp_prefill against serve_fsdp_prefill's rank 0: its
     weight bytes exactly, its traced flash_attention calls the rank's tc
-    launches, its collectives those rank 0 recorded (the same code records
-    both); its peak printed beside the measured one."""
+    launches and its traced rmsnorm calls two a layer and the final norm,
+    its collectives those rank 0 recorded (the same code records both);
+    its peak printed beside the measured one."""
+    from repro_torch.configs import get_config
     measured_gib = phase["peak_gib_by_rank"][0]
     log(f"phase dryrun_serve_fsdp_prefill: {r['arch']} x {r['shape']} at "
         f"batch {r['batch']} on {r['mesh']}, rank 0, serve_needs_fsdp "
@@ -5083,7 +5218,8 @@ def check_serve_fsdp_dryrun(r: dict, phase: dict) -> dict:
     assert r["weight_bytes"] == phase["bytes_by_rank"][0], \
         (r["weight_bytes"], phase["bytes_by_rank"])
     assert r["kernel_launches"] == {
-        "flash_attention": {"tc": phase["tc_by_rank"][0]}}, r
+        "flash_attention": {"tc": phase["tc_by_rank"][0]},
+        "rmsnorm": {"kernel": 2 * get_config(r["arch"]).n_layers + 1}}, r
     assert r["collective_op_counts"] == phase["collective_op_counts_rank0"]
     assert r["wire_bytes_per_device"] == phase["wire_bytes_rank0"]
     return {"peak_ratio": r["peak_memory_bytes"] / 2**30 / measured_gib,
@@ -5168,8 +5304,9 @@ def finish_dryruns(handle: dict, phi3: dict, lm_train: dict) -> dict:
 
     out = {}
     for name, phase, want_launches in (
-            ("dryrun_phi3", phi3, {"flash_attention": {
-                "tc": phi3["launches"]}}),
+            ("dryrun_phi3", phi3, {
+                "flash_attention": {"tc": phi3["launches"]},
+                "rmsnorm": {"kernel": phi3["rmsnorm_launches"]}}),
             ("dryrun_train", lm_train, {})):
         r = got[name]
         ratio = r["peak_memory_bytes"] / (phase["peak_gib"] * 2 ** 30)
@@ -5267,7 +5404,8 @@ def main(argv=None) -> None:
     ptxas = ptxas_report(_build.build_dir(),
                          {n: p.stem.split("-")[-1] for n, p in libs.items()})
     log(f"build: {time.perf_counter() - t0:.2f} s ({ptxas_summary(ptxas)})")
-    for name in ("flash_attention", "distance_topk", "propagate"):
+    for name in ("flash_attention", "distance_topk", "propagate",
+                 "rmsnorm"):
         for fn, regs, spill in ptxas[name]:
             log(f"  ptxas {name} {fn}: {regs} registers, {spill} B spill "
                 f"stores")
@@ -5286,6 +5424,7 @@ def main(argv=None) -> None:
     from repro_torch.kernels.fpf_update.ops import fpf_update
     from repro_torch.kernels.propagate import ops as propagate_ops
     from repro_torch.kernels.propagate.ops import propagate
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
     dev = torch.device("cuda", 0)
     cfg = TastiConfig(n_reps=args.reps, k=8, embed_dim=128,
@@ -5297,6 +5436,7 @@ def main(argv=None) -> None:
                             args.frames),
         check_fpf_update(dev, args.frames, cfg.embed_dim),
         check_propagate(dev, args.frames, cfg.n_reps, cfg.k),
+        check_rmsnorm(dev),
     ]
     results[0]["checks"] = check_distance_topk_cases(dev, check_rows,
                                                      args.frames)
@@ -5369,11 +5509,21 @@ def main(argv=None) -> None:
     fpf_update.launches = 0
     topk_ops.reset_launches()
     propagate_ops.reset_launches()
+    rmsnorm.launches = 0
+    # rmsnorm launches by phase of the main path, in this process (the
+    # mesh phases' workers report theirs)
+    norms, norm_mark = {}, [0]
+
+    def count_norms(phase: str) -> None:
+        norms[phase] = rmsnorm.launches - norm_mark[0]
+        norm_mark[0] = rmsnorm.launches
+
     torch.cuda.reset_peak_memory_stats()
     with Phase("build_tasti", args.profile) as ph:
         system = build_tasti(wl, cfg, variant="PT", embed_params=params,
                              device=dev)
     index = system.index
+    count_norms("build_tasti")          # the MLP embedder: no norm
     build_paths = dict(distance_topk.launches_by_path)
     log(f"phase build_tasti: {ph.seconds:.2f} s (reps {index.n_reps}, "
         f"fpf_update launches {fpf_update.launches}, distance_topk launches "
@@ -5408,6 +5558,7 @@ def main(argv=None) -> None:
         assert abs(agg.estimate - true_mean) <= 3 * agg.ci_half_width, \
             (agg.estimate, agg.ci_half_width, true_mean)
         assert out.results[2].selected is not None
+    count_norms("sessions")
     # the served proxy (kernel path) against the float64 host path over the
     # final, cracked index
     proxy = engine.proxy_scores("score_count")
@@ -5436,6 +5587,7 @@ def main(argv=None) -> None:
     with Phase("serve", args.profile) as ph:
         serve = run_serve(dev, wl, index, SERVE_RATE, SERVE_SECONDS)
     log(f"phase serve: {ph.seconds:.2f} s")
+    count_norms("serve")
     for name, n in serve["launches"].items():
         launches[name] += n
     topk_paths["serve"] = serve["distance_topk_by_route"]
@@ -5447,9 +5599,11 @@ def main(argv=None) -> None:
     for name, n in tasti_t["launches"].items():
         launches[name] += n
     topk_paths["tasti_t"] = tasti_t.pop("distance_topk_by_route")
+    count_norms("tasti_t")
     torch.cuda.empty_cache()
 
     lm_out = run_lm(dev, args.prefill_len, args.compare_len, args.profile)
+    count_norms("lm")           # prefill, serve, decode window and ring
     torch.cuda.empty_cache()
     flash_full = time_flash_full(dev, lm_out["cfg"], args.prefill_len)
     torch.cuda.empty_cache()
@@ -5481,6 +5635,7 @@ def main(argv=None) -> None:
     assert emb_launches == want_launches, (emb_launches, want_launches)
     assert emb_paths == {"simt": 0, "tc": 0, "short": want_launches}, \
         emb_paths
+    count_norms("embedder")
     launches["flash_attention"] = (lm_out["prefill"]["launches"]
                                    + lm_out["serve"]["launches"]
                                    + lm_out["decode_window"]["launches"]
@@ -5489,24 +5644,34 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     lm_train = run_lm_train(dev, 4096, 3, args.profile)
+    count_norms("lm_train")     # its kernel forward; none in the steps
     resilient = run_lm_train_resilient()
+    count_norms("lm_train_resilient")
     free_card()
     mixers = run_mixers(dev, args.prefill_len, args.compare_len,
                         args.profile)
+    count_norms("mixers")
     mixer_flash = {name: mixers[name]["launches"] for name in (
         "moe_prefill", "moe_decode", "xlstm", "moe_prefill_qwen3")}
     mixer_flash["moe_train"] = 0            # asserted in run_moe_train
     launches["flash_attention"] += sum(mixer_flash.values())
     vlm = run_vlm(dev, args.prefill_len, args.compare_len, args.profile)
+    count_norms("vlm")
     vlm_flash = {"vlm_prefill": vlm["launches"],
                  "vlm_decode": vlm["decode"]["launches"]}
     launches["flash_attention"] += sum(vlm_flash.values())
     seamless = run_seamless(dev, args.prefill_len, args.compare_len,
                             args.profile)
+    count_norms("seamless")
     seamless_flash = {"seamless_prefill": seamless["launches"],
                       "seamless_decode": seamless["decode"]["launches"]}
     launches["flash_attention"] += sum(seamless_flash.values())
     phi3 = run_phi3(dev, args.prefill_len, args.compare_len, args.profile)
+    count_norms("phi3")
+    log(f"rmsnorm launches by phase: {norms}")
+    assert all(norms[ph] > 0 for ph in (
+        "lm", "embedder", "lm_train", "mixers", "vlm", "seamless", "phi3")), \
+        norms
     phi3_flash = {"phi3_prefill": phi3["launches"],
                   "lm_decode_ring": lm_out["decode_ring"]["launches"]}
     launches["flash_attention"] += sum(phi3_flash.values())
@@ -5516,6 +5681,7 @@ def main(argv=None) -> None:
     # the mesh layer, after the card has been freed: no kernel of its own
     from repro_torch.configs import get_config
     compress = run_compress(dev, get_config("h2o-danube-3-4b"))
+    count_norms("compress")
     parallel = run_parallel({"device": "cuda", "arch": "h2o-danube-3-4b",
                              "prefill_len": args.prefill_len,
                              "compare_len": args.compare_len})
@@ -5544,12 +5710,25 @@ def main(argv=None) -> None:
     sd_flash = {ph.name: sum(sharded[ph.name]["launches_by_rank"])
                 for ph in SD_PHASES}
     launches["flash_attention"] += sum(sd_flash.values())
+    # the mesh phases' workers, each asserted above zero where it prefills
+    # or decodes on the card
+    norms["seq_dp_prefill"] = sum(parallel["seq_dp_prefill"]["norms_by_rank"])
+    for name in ("megatron_prefill", "serve_fsdp_prefill", "megatron_train"):
+        norms[name] = sum(tensor_parallel[name]["norms_by_rank"])
+    for name in ("megatron", "ep_seq"):
+        norms[f"ep_prefill_{name}"] = sum(
+            tensor_parallel["ep_prefill"][name]["norms_by_rank"])
+    for ph in SD_PHASES:
+        norms[ph.name] = sum(sharded[ph.name]["norms_by_rank"])
+    launches["rmsnorm"] = sum(norms.values())
+    log(f"rmsnorm launches by phase, the mesh phases' added: {norms}")
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
                "propagate": "src/repro/kernels/propagate/kernel.py:84",
                "flash_attention":
-                   "src/repro/kernels/flash_attention/kernel.py:72"}
+                   "src/repro/kernels/flash_attention/kernel.py:72",
+               "rmsnorm": None}     # the norm, which XLA fuses
     # per kernel path: its timed shape (tc: a, simt: a32, short: b) and its
     # launches over the main path's phases
     by_label = {r["label"]: r for r in flash}
@@ -5608,6 +5787,8 @@ def main(argv=None) -> None:
     results[2]["serve_launches_by_mode"] = serve["propagate_by_mode"]
     results[2]["registers"] = {fn: {"registers": regs, "spill_bytes": spill}
                                for fn, regs, spill in ptxas["propagate"]}
+    results[3]["launches_by_phase"] = dict(
+        norms, phi3_prefill=phi3["rmsnorm_launches"])
     kernels = []
     for res in results:
         name = res["name"]

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
 PyTree = Any
 
@@ -235,11 +236,10 @@ def rmsnorm_specs(d: int, dtype: torch.dtype) -> PyTree:
 
 
 def rmsnorm(params: PyTree, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """In float32, cast back to x's dtype (``repro.models.common.rmsnorm``)."""
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * params["scale"].float()).to(x.dtype)
+    """In float32, cast back to x's dtype (``repro.models.common.rmsnorm``):
+    the ``rmsnorm`` kernel or its plain version, as
+    ``kernels.rmsnorm.ops.rmsnorm_route`` picks."""
+    return rmsnorm_ops.rmsnorm(x, params["scale"], eps)
 
 
 def layernorm_specs(d: int, dtype: torch.dtype) -> PyTree:

@@ -21,6 +21,8 @@ from repro_torch.kernels.fpf_update.ref import fpf_update_ref  # noqa: E402
 from repro_torch.kernels.propagate import ops as propagate_ops  # noqa: E402
 from repro_torch.kernels.propagate.ops import propagate  # noqa: E402
 from repro_torch.kernels.propagate.ref import tie_break_prescale  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -718,3 +720,79 @@ def test_flash_attention_real_cuda_tensor_launches_beside_traced_path(cuda):
         out = flash_attention(fq, fq, fq, causal=True)
     assert out.shape == fq.shape and flash_attention.launches == before + 1
     assert [t[1] for t in traced] == ["tc"]
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units in the last place of their floating type."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+
+    def ordered(t):
+        i = t.contiguous().view(ints).to(torch.int64)
+        return torch.where(i < 0, -(i & (2 ** (8 * a.element_size() - 1) - 1)),
+                           i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.parametrize("shape,dtype,scale_dtype", [
+    ((4096, 5120), torch.bfloat16, torch.bfloat16),   # phi3's rows
+    ((1, 5120), torch.bfloat16, torch.bfloat16),      # decode
+    ((7, 5120), torch.bfloat16, torch.bfloat16),
+    ((4096, 8, 256), torch.float32, torch.float32),   # the embedder
+    ((2, 300, 32, 128), torch.bfloat16, torch.bfloat16),  # qk-norm
+    ((64, 120), torch.bfloat16, torch.bfloat16),
+    ((100, 64), torch.float32, torch.float32),
+    ((50, 4096), torch.float16, torch.float16),
+    ((17, 5120), torch.bfloat16, torch.float32),      # a float32 scale
+    ((3, 65536), torch.bfloat16, torch.bfloat16),     # the widest rows
+    ("strided", torch.bfloat16, torch.bfloat16),
+    ("misaligned", torch.bfloat16, torch.bfloat16),
+])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype, scale_dtype):
+    """One launch against the plain version on the card: 16-bit outputs
+    within one ulp and nearly all equal bit for bit, float32 within four
+    ulps (only the order of the float32 sum differs)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    if shape == "strided":       # rows of a wider buffer, read in place
+        x = torch.randn(300, 32, 160, device=cuda, generator=g).to(dtype)
+        x = x[..., 16:144]
+    elif shape == "misaligned":  # rows off 16 bytes: the wrapper copies
+        x = torch.randn(64, 5121, device=cuda, generator=g).to(dtype)
+        x = x[:, 1:]
+    else:
+        x = torch.randn(shape, device=cuda, generator=g).to(dtype) * 3
+    d = x.shape[-1]
+    scale = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(
+        scale_dtype)
+    before = rmsnorm.launches
+    with torch.no_grad():
+        got = rmsnorm(x, scale, 1e-6)
+    want = rmsnorm_ref(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    ulps = _ulps(got, want)
+    if dtype == torch.float32:     # the sum's order moves the mean an ulp
+        assert int(ulps.max()) <= 4    # or two, and rsqrt carries it on
+    else:
+        assert int(ulps.max()) <= 1
+        assert float((ulps == 0).float().mean()) >= 0.99
+
+
+def test_rmsnorm_kernel_leaves_training_to_the_plain_version(cuda):
+    """Under grad mode an input that requires grad takes the plain version
+    (a grad_fn, no launch); without grad the kernel launches, as the custom
+    op does on a real tensor; no rows, no launch."""
+    x = torch.randn(64, 256, device=cuda, requires_grad=True)
+    scale = torch.ones(256, device=cuda)
+    before = rmsnorm.launches
+    out = rmsnorm(x, scale, 1e-6)
+    assert out.grad_fn is not None and rmsnorm.launches == before
+    out.sum().backward()
+    assert x.grad is not None
+    with torch.no_grad():
+        got = rmsnorm(x, scale, 1e-6)
+        empty = rmsnorm(x[:0], scale, 1e-6)
+        op = torch.ops.repro_torch.rmsnorm(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 2 and empty.shape == (0, 256)
+    assert torch.equal(op, got)

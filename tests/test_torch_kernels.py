@@ -2,8 +2,13 @@
 plain PyTorch version (the CPU path of its wrapper) against the JAX
 package's XLA reference and its Pallas kernel in interpret mode, on the
 same seeded numpy inputs, with the JAX package's tolerances (1e-4 for
-distance_topk float32, 1e-5 for fpf_update, 5e-2 for 16-bit inputs).
-The kernels themselves run in tests/test_torch_cuda.py on a card."""
+distance_topk float32, 1e-5 for fpf_update, 5e-2 for 16-bit inputs);
+rmsnorm, which replaces no Pallas kernel, by its route, its plain version
+and its traced call.  The kernels themselves run in
+tests/test_torch_cuda.py on a card."""
+import contextlib
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -370,7 +375,7 @@ def test_each_kernel_library_hashes_its_own_source_and_headers(tmp_path,
     monkeypatch.setattr(_build, "CSRC", csrc)
     names = sorted(p.stem for p in csrc.glob("*.cu"))
     assert names == ["distance_topk", "flash_attention", "fpf_update",
-                     "propagate"]
+                     "propagate", "rmsnorm"]
     assert [p.name for p in _build._includes(csrc / "flash_attention.cu")] \
         == ["common.cuh", "hopper.cuh"]
     before = {n: _build.source_hash(n) for n in names}
@@ -416,3 +421,195 @@ def test_launch_counts_lose_no_update_under_threads():
         sys.setswitchinterval(interval)
     assert counted.launches == 32000
     assert counted.launches_by_path == {"a": 16000, "b": 16000}
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm: the route, the plain version, the traced call
+# ---------------------------------------------------------------------------
+
+def _eager_rmsnorm(x, scale, eps):
+    """The eager composition ``models/common.py`` ran before the kernel."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def _fake_cuda(*shape, dtype=torch.bfloat16):
+    return torch.empty(*shape, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("device,grad_mode,needs_grad,want", [
+    ("cpu", False, "", "plain"),
+    ("cpu", True, "x", "plain"),
+    ("cuda", False, "", "kernel"),
+    ("cuda", True, "", "kernel"),
+    ("cuda", False, "x", "kernel"),          # grad mode off: no gradient
+    ("cuda", True, "x", "plain"),
+    ("cuda", True, "scale", "plain"),
+    ("meta", True, "", "kernel"),            # the dry run's traced tensors
+    ("meta", True, "x", "plain"),
+])
+def test_rmsnorm_route(device, grad_mode, needs_grad, want):
+    """CPU tensors and inputs that need a gradient take the plain version;
+    CUDA tensors (here FakeTensorMode's) and tensors without data take the
+    kernel."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_route
+    mode = FakeTensorMode() if device == "cuda" else contextlib.nullcontext()
+    with mode, torch.set_grad_enabled(grad_mode):
+        x = torch.empty(3, 5, 128, dtype=torch.bfloat16, device=device)
+        scale = torch.empty(128, dtype=torch.bfloat16, device=device)
+        x.requires_grad_(needs_grad == "x")
+        scale.requires_grad_(needs_grad == "scale")
+        assert rmsnorm_route(x, scale) == want
+
+
+@pytest.mark.parametrize("d,dtype,scale_d,error", [
+    (128, torch.float64, 128, TypeError),    # no float64 kernel
+    (100, torch.bfloat16, 100, ValueError),  # 200 B rows: no 16 B chunks
+    (128, torch.bfloat16, 64, ValueError),   # scale of another width
+    (65544, torch.bfloat16, 65544, ValueError),  # wider than 128 KiB
+])
+def test_rmsnorm_route_refuses_what_the_kernel_cannot_take(d, dtype, scale_d,
+                                                           error):
+    """On CUDA there is no fallback: what the kernel cannot take raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_route
+    with FakeTensorMode():
+        x = _fake_cuda(4, d, dtype=dtype)
+        with pytest.raises(error):
+            rmsnorm_route(x, _fake_cuda(scale_d, dtype=dtype))
+
+
+@pytest.mark.parametrize("rows", [1, 7, 4096, "strided"])
+@pytest.mark.parametrize("d", [64, 120, 256, 5120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_ref_is_the_eager_composition(dtype, d, rows):
+    """The plain version (``rmsnorm_ref``), and the model's norm on the CPU
+    through the route, equal the eager composition bit for bit (a strided view: 7 rows
+    of a wider buffer); the CPU wrapper launches nothing."""
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models import common
+    g = torch.Generator().manual_seed(d)
+    if rows == "strided":
+        x = torch.randn(7, d + 24, generator=g).to(dtype)[:, 8:8 + d]
+        assert not x.is_contiguous()
+    else:
+        x = torch.randn(rows, d, generator=g).to(dtype)
+    scale = (1 + 0.1 * torch.randn(d, generator=g)).to(dtype)
+    want = _eager_rmsnorm(x, scale, 1e-6)
+    before = rms_ops.rmsnorm.launches
+    for got in (rmsnorm_ref(x, scale, 1e-6),
+                common.rmsnorm({"scale": scale}, x, 1e-6)):
+        assert got.dtype == dtype and got.shape == x.shape
+        assert torch.equal(got, want)
+    assert rms_ops.rmsnorm.launches == before
+
+
+@pytest.mark.parametrize("device", ["meta", "fake_cuda"])
+@pytest.mark.parametrize("shape,dtype", [((2, 9, 5120), torch.bfloat16),
+                                         ((4096, 8, 256), torch.float32),
+                                         ((3, 11, 4, 128), torch.bfloat16)])
+def test_rmsnorm_traced_call_under_the_dry_run(monkeypatch, device, shape,
+                                               dtype):
+    """On tensors without data, under the dry run's ``Tally``: an output of
+    x's shape and dtype, one traced call with its operations and bytes,
+    one op's bytes in the tally, nothing built or launched."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.launch.dryrun import Tally
+    from repro_torch.models import common
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the traced path built or bound a kernel")
+
+    monkeypatch.setattr(_build, "bind", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = rms_ops.rmsnorm.launches
+    d, item = shape[-1], torch.tensor([], dtype=dtype).element_size()
+    rows = int(np.prod(shape[:-1]))
+    fake = FakeTensorMode() if device == "fake_cuda" else \
+        contextlib.nullcontext()
+    dev = "cuda" if device == "fake_cuda" else "meta"
+    with fake:
+        x = torch.empty(shape, dtype=dtype, device=dev)
+        scale = torch.empty(d, dtype=dtype, device=dev)
+        with Tally(live=[x, scale]) as tally, \
+                _build.trace_kernels() as traced:
+            out = common.rmsnorm({"scale": scale}, x, 1e-6)
+    assert out.shape == x.shape and out.dtype == dtype
+    assert out.device.type == dev
+    assert traced == [("rmsnorm", "kernel", 4.0 * rows * d,
+                       2 * rows * d * item + d * item)]
+    assert tally.bytes == (2 * rows * d + d) * item
+    assert rms_ops.rmsnorm.launches == before
+
+
+_DRYRUN_CELLS = """
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.kernels.rmsnorm import ops
+keys = ("flops_per_device", "bytes_accessed_per_device", "argument_bytes",
+        "peak_memory_bytes", "kernel_launches")
+out = {}
+for name, arch, shape in (("prefill", "phi3-medium-14b", "prefill_32k"),
+                          ("train", "h2o-danube-3-4b", "train_4k")):
+    r = dryrun.run_cell(arch, shape, "host", batch=1)
+    out[name] = {k: r[k] for k in keys}
+ops.rmsnorm_route = lambda x, scale: "plain"
+r = dryrun.run_cell("phi3-medium-14b", "prefill_32k", "host", batch=1)
+out["prefill_plain"] = {k: r[k] for k in keys}
+print(json.dumps(out))
+"""
+
+
+def test_dryrun_phi3_traces_the_kernel_and_its_counts_hold():
+    """dryrun_phi3's cell (phi3-medium-14b x prefill_32k at batch 1, one
+    process): 81 traced rmsnorm calls (two a layer and the final norm)
+    beside 40 tc flash calls; its flops, argument bytes and peak are those
+    of the same trace with the plain norm, its bytes accessed lower by
+    what the eager passes moved.  The training cell (danube x train_4k,
+    the dry run's lm_train) traces no kernel: its norms take the plain
+    version by the route."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_CELLS], capture_output=True,
+        text=True, timeout=240, env={**os.environ, "PYTHONPATH": src,
+                                     "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.splitlines()[-1])
+    kernel, plain = got["prefill"], got["prefill_plain"]
+    assert kernel["kernel_launches"] == {"rmsnorm": {"kernel": 81},
+                                         "flash_attention": {"tc": 40}}
+    assert plain["kernel_launches"] == {"flash_attention": {"tc": 40}}
+    for k in ("flops_per_device", "argument_bytes", "peak_memory_bytes"):
+        assert kernel[k] == plain[k], k
+    assert kernel["bytes_accessed_per_device"] < \
+        plain["bytes_accessed_per_device"]
+    assert got["train"]["kernel_launches"] == {}
+
+
+def test_embedder_training_takes_the_plain_norm():
+    """TASTI-T trains the transformer embedder with grad mode on and its
+    parameters requiring grad: on tensors without data none of its norms
+    reaches the kernel's traced call; under ``torch.no_grad`` (``embed_all``)
+    all eight do (two a layer of four)."""
+    from repro_torch.core.embedder import Embedder, EmbedderConfig
+    from repro_torch.kernels import _build
+    model = Embedder(EmbedderConfig(backbone="tasti-embedder"),
+                     torch.Generator().manual_seed(0)).to("meta")
+    x = torch.empty(16, 64, device="meta")
+    with _build.trace_kernels() as traced:
+        model(x, attn_impl="plain").sum()
+    assert [t for t in traced if t[0] == "rmsnorm"] == []
+    with torch.no_grad(), _build.trace_kernels() as traced:
+        model(x, attn_impl="plain")
+    assert [t[:2] for t in traced] == [("rmsnorm", "kernel")] * 8
