@@ -20,8 +20,9 @@
    asserts which path its input takes; distance_topk's tc route also at a
    crack's C, at C 7,001, k 1, in bf16 and on near-duplicate records
    (against float64); propagate's top1 prescale bit for bit against
-   tie_break_prescale; rmsnorm at phi3's prefill rows, the embedder's
-   batch, a qk-norm and decode's 1-8 rows (RMSNORM_CASES), within an ulp
+   tie_break_prescale; rmsnorm at phi3's prefill rows, OLMoE-1B-7B-0924's
+   (several rows a block), the embedder's batch, a qk-norm and decode's
+   1-8 rows (RMSNORM_CASES), within an ulp
    or two, beside its bytes bound and PyTorch's own ``rms_norm``.  Its
    launches are then counted phase by phase, the mesh phases' by their
    ranks: above zero wherever a model prefills or decodes, zero in the
@@ -604,13 +605,17 @@ def check_fpf_update(dev, n: int, d: int):
 
 
 #: (label, rows, d, dtype, most ulps, least share bitwise equal) of
-#: check_rmsnorm: phi3-medium-14b's prefill rows, the transformer
-#: embedder's batch of 4,096 records x 8 tokens, a qk-norm over 8,192
-#: tokens x 32 heads of 128, decode's rows at phi3's width.  float32 keeps
+#: check_rmsnorm: phi3-medium-14b's prefill rows, OLMoE-1B-7B-0924's
+#: 8 x 4,096 prefill rows of 2,048 (every one of its norms, the q/k norms
+#: over the projection too; the launch puts several rows in a block and
+#: sums each row over several warps), the transformer embedder's batch of
+#: 4,096 records x 8 tokens, a qk-norm over 8,192 tokens x 32 heads of
+#: 128, decode's rows at phi3's width.  float32 keeps
 #: the ulps the sum's order moves: over 256 terms the mean moves by an ulp
 #: or two, rsqrtf and the two products carry that on (4 read on the card)
 RMSNORM_CASES = (
     ("phi3", 32768, 5120, torch.bfloat16, 1, 0.99),
+    ("olmoe", 32768, 2048, torch.bfloat16, 1, 0.99),
     ("embedder", 32768, 256, torch.float32, 4, 0.0),
     ("qk_norm", 8192 * 32, 128, torch.bfloat16, 1, 0.99),
     *((f"decode{r}", r, 5120, torch.bfloat16, 1, 0.99) for r in range(1, 9)),
@@ -5460,8 +5465,9 @@ def main(argv=None) -> None:
     # 128 and Skv != S, GQA ratios 1 and 4, rows with no key, a window
     # without causal, and the shapes the mixer and seamless paths launch
     # below their full-width prefills (seamless_decode's encoder: batch 4
-    # over 4,096 frames; sharded_seamless's: each rank's 4 of its 16 heads);
-    # the short path at S 1, 8 and 32 in both dtypes
+    # over 4,096 frames; sharded_seamless's: each rank's 4 of its 16 heads),
+    # and the step of the benchmark's OLMoE-1B-7B-0924 cell (8 prompts of
+    # 4,096); the short path at S 1, 8 and 32 in both dtypes
     bf, f32 = torch.bfloat16, torch.float32
     for label, b, s, skv, h, hk, hd, dtype, causal, window, path in [
             ("tc-hd64-gqa1", 2, 1000, 1000, 8, 8, 64, bf, True, 0, "tc"),
@@ -5475,6 +5481,8 @@ def main(argv=None) -> None:
              "tc"),
             ("tc-hd128-gqa8-qwen3moe", 1, 2048, 2048, 32, 4, 128, bf, True,
              0, "tc"),
+            ("tc-hd128-gqa1-olmoe-0924", 8, 4096, 4096, 16, 16, 128, bf,
+             True, 0, "tc"),
             ("tc-hd64-cross-seamless", 1, 3000, 5000, 16, 16, 64, bf, False,
              0, "tc"),
             ("tc-hd64-bidir-seamless-decode", 4, 4096, 4096, 16, 16, 64, bf,

@@ -2,17 +2,21 @@
 
 One module per assigned architecture (exact published config) plus the paper's
 own TASTI embedder backbone.  Smoke variants via ``get_config(name).smoke()``.
+The registry also holds configurations that only the port runs (a
+``PortModelConfig``, such as ``olmoe-1b-7b-0924``), which are not among the
+assigned architectures that the dry-run tables and parity tests walk.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.configs.base import (SHAPE_BY_NAME, SHAPES, LayerSpec, ModelConfig,
-                                ShapeConfig, cell_is_runnable)
+                                PortModelConfig, ShapeConfig, cell_is_runnable)
 from repro_torch.configs.h2o_danube3_4b import CONFIG as _danube
 from repro_torch.configs.jamba_1_5_large_398b import CONFIG as _jamba
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.olmoe_1b_7b_0924 import CONFIG as _olmoe_0924
 from repro_torch.configs.phi3_medium_14b import CONFIG as _phi3
 from repro_torch.configs.qwen2_vl_7b import CONFIG as _qwen2vl
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3
@@ -23,7 +27,7 @@ from repro_torch.configs.xlstm_350m import CONFIG as _xlstm
 
 _REGISTRY: Dict[str, ModelConfig] = {c.name: c for c in [
     _jamba, _llama, _phi3, _qwen3, _danube, _qwen2vl, _xlstm, _seamless,
-    _olmoe, _qwen3moe, _tasti_embedder,
+    _olmoe, _qwen3moe, _tasti_embedder, _olmoe_0924,
 ]}
 
 ASSIGNED_ARCHS: List[str] = [
@@ -44,5 +48,5 @@ def list_archs() -> List[str]:
 
 
 __all__ = ["get_config", "list_archs", "ASSIGNED_ARCHS", "SHAPES",
-           "SHAPE_BY_NAME", "ModelConfig", "ShapeConfig", "LayerSpec",
-           "cell_is_runnable"]
+           "SHAPE_BY_NAME", "ModelConfig", "PortModelConfig", "ShapeConfig",
+           "LayerSpec", "cell_is_runnable"]

@@ -238,6 +238,36 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A configuration that only the port runs: :class:`ModelConfig`'s
+    fields, which stay field for field the JAX package's, and three
+    switches it lacks.  Each default is what a plain :class:`ModelConfig`
+    does, and the layers read a switch through :func:`port_option`, so a
+    plain config behaves as before."""
+
+    #: route every (token, choice) to its expert: the choices sorted by
+    #: expert, grouped products over the experts' jagged row counts, no
+    #: capacity and nothing dropped (``models.moe``); False: GShard
+    #: dispatch in groups with ``capacity_factor``
+    moe_dropless: bool = False
+    #: the top-k router weights renormalised to sum to one (a softmax over
+    #: the top k logits); False: the softmax over all experts, of which
+    #: the top k are taken as they are
+    router_renormalize: bool = True
+    #: ``q_norm``/``k_norm`` over the whole projection (n_heads x head_dim)
+    #: before the split into heads; False: over each head's head_dim
+    qk_norm_whole: bool = False
+
+
+def port_option(cfg: ModelConfig, name: str):
+    """``cfg``'s port-only switch ``name`` (a field of
+    :class:`PortModelConfig`), or its default for a plain
+    :class:`ModelConfig`."""
+    return getattr(cfg, name,
+                   PortModelConfig.__dataclass_fields__[name].default)
+
+
+@dataclass(frozen=True)
 class ShapeConfig:
     """One input-shape cell (assignment: 4 per architecture)."""
 

@@ -36,6 +36,14 @@ Options of the config that mean nothing different on one device:
   ``dynamic_update_slice`` where ``"masked"`` rewrites the cache through a
   one-hot ``where``; both give the same values, and the port writes that
   one slot in place under either.
+
+``q_norm`` and ``k_norm`` normalise each head's head_dim by default (the
+JAX package's qk-norm); under ``PortModelConfig.qk_norm_whole`` (the
+published OLMoE's) they normalise the whole q and k projections, scales of
+n_heads x head_dim and n_kv_heads x head_dim, before the split into heads
+(:func:`_qk_norm`), in prefill and both decode paths.  The
+tensor-parallel path, whose ranks hold parts of the projection, raises
+for it.
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, port_option
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (NEG_INF,
                                                      flash_attention_ref)
@@ -62,7 +70,8 @@ SEQ_STRATEGIES = ("seq_dp", "ep_seq")
 
 def attention_specs(cfg: ModelConfig, cross: bool = False) -> PyTree:
     """Projections (d, H*hd), (d, Hk*hd) x 2, (H*hd, d); with ``qk_norm``
-    also q_norm and k_norm, except for cross-attention."""
+    also q_norm and k_norm, (hd,) each, or (H*hd,) and (Hk*hd,) under
+    ``qk_norm_whole``, except for cross-attention."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     qd = cfg.n_heads * hd
     kvd = cfg.n_kv_heads * hd
@@ -74,9 +83,22 @@ def attention_specs(cfg: ModelConfig, cross: bool = False) -> PyTree:
         "wo": ParamSpec((qd, d), dt, logical_axes=("heads", "embed")),
     }
     if cfg.qk_norm and not cross:
-        specs["q_norm"] = ParamSpec((hd,), dt, init="ones")
-        specs["k_norm"] = ParamSpec((hd,), dt, init="ones")
+        whole = port_option(cfg, "qk_norm_whole")
+        specs["q_norm"] = ParamSpec((qd if whole else hd,), dt, init="ones")
+        specs["k_norm"] = ParamSpec((kvd if whole else hd,), dt,
+                                    init="ones")
     return specs
+
+
+def _qk_norm(params: PyTree, name: str, t: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """t (..., heads, hd) through the norm ``name`` (``q_norm`` or
+    ``k_norm``): over each head, or over all heads at once under
+    ``qk_norm_whole``."""
+    scale = {"scale": params[name]}
+    if not port_option(cfg, "qk_norm_whole"):
+        return rmsnorm(scale, t, cfg.norm_eps)
+    return rmsnorm(scale, t.flatten(-2), cfg.norm_eps).view(t.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -95,8 +117,8 @@ def _project_qkv(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
     v = torch.matmul(kv_src, params["wv"]).reshape(*kv_src.shape[:2],
                                                    cfg.n_kv_heads, hd)
     if "q_norm" in params:
-        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
-        k = rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
+        q = _qk_norm(params, "q_norm", q, cfg)
+        k = _qk_norm(params, "k_norm", k, cfg)
     return q, k, v
 
 
@@ -217,7 +239,12 @@ def _tp_attention(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp,
     own columns are not exactly those (the decision is the same on every
     rank, so every rank takes part in the gather).  It keeps o's columns
     [c0, c1) and returns its partial product with ``wo``, summed over
-    ``model``."""
+    ``model``.  A norm over the whole projection (``qk_norm_whole``)
+    would need a sum across the ranks: it raises."""
+    if "q_norm" in params and port_option(cfg, "qk_norm_whole"):
+        raise NotImplementedError(
+            f"{cfg.name}: qk-norm over the whole projection has no "
+            "tensor-parallel path")
     hd = cfg.resolved_head_dim
     g = cfg.n_heads // cfg.n_kv_heads
     lq, lk = params["wq"].shape[1], params["wk"].shape[1]
@@ -400,7 +427,7 @@ def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,
     proj = _decode_qkv(params, x, cfg, tp, cross)
     q = proj[0]
     if "q_norm" in params:
-        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
+        q = _qk_norm(params, "q_norm", q, cfg)
     if angles is not None:
         q = rope_lib.apply_rope(q, angles)
     mesh, seq, start = (None, (), 0) if kv is None else (
@@ -408,7 +435,7 @@ def attention_decode(params: PyTree, x: torch.Tensor, cache_k: torch.Tensor,
     if not cross:
         k_new, v_new = proj[1:]
         if "k_norm" in params:
-            k_new = rmsnorm({"scale": params["k_norm"]}, k_new, cfg.norm_eps)
+            k_new = _qk_norm(params, "k_norm", k_new, cfg)
         if angles is not None:
             k_new = rope_lib.apply_rope(k_new, angles)
         slot = pos % (cache_k.shape[1] if kv is None else kv.whole(1))
@@ -461,8 +488,8 @@ def attention_decode_two_tier(params: PyTree, x: torch.Tensor,
     g = h // hk
     q, k_new, v_new = _decode_qkv(params, x, cfg, tp, cross=False)
     if "q_norm" in params:
-        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
-        k_new = rmsnorm({"scale": params["k_norm"]}, k_new, cfg.norm_eps)
+        q = _qk_norm(params, "q_norm", q, cfg)
+        k_new = _qk_norm(params, "k_norm", k_new, cfg)
     if angles is not None:
         q = rope_lib.apply_rope(q, angles)
         k_new = rope_lib.apply_rope(k_new, angles)

@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig, port_option
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import DTYPES, PyTree, rmsnorm, rmsnorm_specs
 from repro_torch.parallel import collectives, tensor_parallel
@@ -63,7 +63,9 @@ def _mlp_out(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
     or rows shorter than a group) it gathers every token (the gradient
     scattered back) and keeps its slice of the output, and the aux loss's
     gradient is its batch rows' share.  Each rank runs its experts (split
-    over ``model``); the dense MLP splits its width over ``model``."""
+    over ``model``); the dense MLP splits its width over ``model``.  The
+    dropless MoE (``PortModelConfig.moe_dropless``) has no mesh path and
+    raises there."""
     tp = tensor_parallel.model_group(None if layout is None
                                      else layout.mesh)
     if spec.mlp == "dense":
@@ -74,6 +76,10 @@ def _mlp_out(params: PyTree, h: torch.Tensor, cfg: ModelConfig,
         x = rmsnorm(params["norm2"], h, cfg.norm_eps)
         if layout is None:
             return moe.moe_fwd(params["moe"], x, cfg)
+        if port_option(cfg, "moe_dropless"):
+            raise NotImplementedError(
+                f"{cfg.name}: the dropless MoE runs on one device; it has "
+                "no mesh path")
         rows = collectives.group_size(layout.mesh, layout.batch_dims)
         tokens = x.shape[0] * rows * x.shape[1]
         group = min(cfg.moe_group_size, tokens)

@@ -14,17 +14,60 @@ and drops are the one-process layer's; each rank runs only its experts
 (the ``experts`` dim split over ``model``, under ``megatron`` and
 ``ep_seq``), or, where the expert count does not split, its share of every
 expert's hidden width, and the partial outputs are summed over ``model``.
+
+Dropless dispatch (``PortModelConfig.moe_dropless``, the published
+OLMoE's): no groups and no capacity.  The router's weights are the softmax
+over all experts, of which the top k are kept, renormalised or not
+(``router_renormalize``); the T k (token, choice) pairs are sorted by
+expert (a stable sort, so that each expert's rows keep token order), the
+per-expert offsets found on the device, the rows gathered into expert
+order, the SwiGLU expert run as grouped products over the experts' jagged
+row counts (``torch._grouped_mm``, with no read-back to the host), and
+each result scaled by its weight and added back to its token in float32,
+cast once.  Every choice is computed.  It runs on one device, forward
+only: the mesh paths and training raise.
+
+Every ``moe_fwd`` is a span ``moe.forward`` of ``obs.trace`` (one flag
+check with tracing off), with ``tokens``, ``experts`` and ``d2h_bytes``,
+what the layer read back to the host (0 on either path); the dropless
+path adds ``choices`` (T k, every one computed).  Inside
+:func:`recorded_routing` each layer also hands over its experts' indices,
+for a check that replays the program's routing.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from contextlib import contextmanager
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, port_option
 from repro_torch.models.common import DTYPES, ParamSpec, PyTree
+from repro_torch.obs import trace
 from repro_torch.parallel import collectives, tensor_parallel
+
+
+#: the list that :func:`recorded_routing` fills, or None
+_routing: Optional[List[torch.Tensor]] = None
+
+
+@contextmanager
+def recorded_routing():
+    """While inside, every MoE layer appends the experts it chose, (tokens,
+    k) indices in token order, to the list this yields: the program's
+    routing, for a reference that replays it.  No copy and no sync."""
+    global _routing
+    outer, _routing = _routing, []
+    try:
+        yield _routing
+    finally:
+        _routing = outer
+
+
+def _record(top_idx: torch.Tensor) -> None:
+    if _routing is not None:
+        _routing.append(top_idx.reshape(-1, top_idx.shape[-1]))
 
 
 def moe_specs(cfg: ModelConfig) -> PyTree:
@@ -97,6 +140,7 @@ def _route(params: PyTree, xg: torch.Tensor, cfg: ModelConfig, cap: int,
     dt = xg.dtype
     logits = torch.matmul(xg, params["router"]).float()       # (g, gt, E)
     weights, top_idx = _top_k_gating(logits, k)                # (g, gt, k)
+    _record(top_idx)
 
     # load-balancing auxiliary loss (Switch-style): mean prob x token share
     probs = torch.softmax(logits, dim=-1)
@@ -129,9 +173,76 @@ def _experts(params: PyTree, xe: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gecf,efd->gecd", F.silu(gate) * up, params["wo"])
 
 
+def _softmax_top_k(logits: torch.Tensor, k: int,
+                   renormalize: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits (..., E) float32 -> (weights (..., k), indices (..., k)) in
+    :func:`_top_k_gating`'s order; without ``renormalize`` the weights are
+    the softmax over all E experts at the top k, summing to less than
+    one."""
+    if renormalize:
+        return _top_k_gating(logits, k)
+    top_idx = torch.sort(logits, dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+    return torch.softmax(logits, dim=-1).gather(-1, top_idx), top_idx
+
+
+def _grouped_swiglu(params: PyTree, xs: torch.Tensor,
+                    ends: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU expert FFN on rows xs (N, D) in expert order, expert j's
+    rows ending at ``ends[j]`` (int32, on xs's device) -> (N, D): three
+    ``torch._grouped_mm`` calls, which read the offsets where they lie, on
+    the CPU as on CUDA, and raise for a dtype or a layout they do not
+    take."""
+    gate = torch._grouped_mm(xs, params["wi_gate"], offs=ends)
+    up = torch._grouped_mm(xs, params["wi_up"], offs=ends)
+    return torch._grouped_mm(F.silu(gate) * up, params["wo"], offs=ends)
+
+
+def _dropless(params: PyTree, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, D) -> (B, S, D): every (token, choice) through its expert
+    (the module's docstring)."""
+    b, s, d = x.shape
+    xt = x.reshape(-1, d)
+    logits = torch.matmul(xt, params["router"]).float()        # (T, E)
+    weights, top_idx = _softmax_top_k(
+        logits, cfg.top_k, port_option(cfg, "router_renormalize"))
+    _record(top_idx)
+    experts, order = torch.sort(top_idx.reshape(-1), stable=True)
+    ends = torch.searchsorted(experts, torch.arange(
+        cfg.n_experts, device=x.device), right=True).int()
+    token_of = order // cfg.top_k
+    y = _grouped_swiglu(params, xt.index_select(0, token_of), ends)
+    scaled = y * weights.reshape(-1).index_select(0, order)[:, None]
+    out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
+    out.index_add_(0, token_of, scaled)
+    return out.to(x.dtype).reshape(b, s, d)
+
+
 def moe_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp=None,
             tokens: int = 0, batch=None):
-    """x (B, S, D) -> (out (B, S, D), aux_loss scalar float32).
+    """x (B, S, D) -> (out (B, S, D), aux_loss scalar float32), inside a
+    span ``moe.forward``: the dropless dispatch under ``moe_dropless``
+    (one device, forward only, so ``tp``, ``tokens`` and ``batch`` unused,
+    which ``blocks`` enforces; its aux loss 0), else :func:`_moe`."""
+    b, s, _ = x.shape
+    if not port_option(cfg, "moe_dropless"):
+        with trace.span("moe.forward", tokens=b * s, experts=cfg.n_experts,
+                        d2h_bytes=0):
+            return _moe(params, x, cfg, tp, tokens, batch)
+    with trace.span("moe.forward", tokens=b * s, choices=b * s * cfg.top_k,
+                    experts=cfg.n_experts, d2h_bytes=0):
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for p in params.values())):
+            raise NotImplementedError(
+                f"{cfg.name}: the dropless MoE has no training path")
+        return _dropless(params, x, cfg), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+
+
+def _moe(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp=None,
+         tokens: int = 0, batch=None):
+    """The GShard dispatch: (out (B, S, D), aux_loss scalar float32).
 
     With ``tp`` (a ``parallel.tensor_parallel.ModelGroup``) the expert
     leaves hold this rank's experts (or its share of each expert's hidden

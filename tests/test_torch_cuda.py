@@ -735,6 +735,7 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("shape,dtype,scale_dtype", [
     ((4096, 5120), torch.bfloat16, torch.bfloat16),   # phi3's rows
+    ((8, 4096, 2048), torch.bfloat16, torch.bfloat16),  # OLMoE-1B-7B-0924's
     ((1, 5120), torch.bfloat16, torch.bfloat16),      # decode
     ((7, 5120), torch.bfloat16, torch.bfloat16),
     ((4096, 8, 256), torch.float32, torch.float32),   # the embedder
