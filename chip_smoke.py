@@ -26,7 +26,12 @@
    or two, beside its bytes bound and PyTorch's own ``rms_norm``.  Its
    launches are then counted phase by phase, the mesh phases' by their
    ranks: above zero wherever a model prefills or decodes, zero in the
-   training steps (which take the plain norm).
+   training steps (which take the plain norm).  moe_combine, the dropless
+   MoE's combine, at OLMoE-1B-7B-0924's step and decode's rows
+   (MOE_COMBINE_CASES), bit for bit its own order's plain sum and within a
+   reordered sum's bound of the plain scatter-add, beside its bytes bound;
+   one launch a layer of a forward of the dropless model at a small width.
+   On the main path only moe_prefill_0924 (phase 9) launches it.
 3. tasti: builds a TASTI index (``build_tasti``, variant PT, seeded random
    embedder weights) over the synthetic night-street video at 1M frames and
    serves a three-query session twice through a cracking ``QueryEngine``
@@ -83,7 +88,11 @@
    choice) pairs counted; kernel against plain route at 8,192 tokens by the
    routed rule; one layer's stages timed), moe_decode (16 steps at batch 4
    after 4,096 seeded keys; a float32 replay of 4 x 32 against
-   ``lm_logits``), moe_train (``make_train_step`` at olmoe widths, 2
+   ``lm_logits``), moe_prefill_0924 (olmoe-1b-7b-0924, the dropless MoE,
+   at its published widths on the benchmark cell's 8 x 4,096 tokens: 16
+   attention launches, all tc, and 16 moe_combine launches, counted from
+   0 just before the forward; these are the main path's combine launches
+   in the ``kernels`` line), moe_train (``make_train_step`` at olmoe widths, 2
    layers, 3 steps of 1 x 4,096: the aux loss > 0, every leaf moves),
    xlstm (xlstm-350m forward over 4,096 tokens, the sLSTM loop's share; a
    float32 decode replay of 64 tokens), mamba_layer (one Mamba mixer at
@@ -687,6 +696,135 @@ def check_rmsnorm(dev):
             "device_ms": out[0]["device_ms"], "plain_ms": out[0]["plain_ms"],
             "bound_ms": out[0]["bound_ms"], "bound_by": out[0]["bound_by"],
             "library_ms": out[0]["library_ms"], "cases": out}
+
+
+#: (label, tokens, k, d, dtype, timed) of check_moe_combine: the dropless
+#: MoE's combine at OLMoE-1B-7B-0924's step of 8 x 4,096 tokens, 8 of 64
+#: experts, rows of 2,048 (the benchmark's cell), at decode's 1 and 8 rows
+#: and at a count of tokens no block multiple
+MOE_COMBINE_CASES = (
+    ("olmoe", 32768, 8, 2048, torch.bfloat16, True),
+    ("decode1", 1, 8, 2048, torch.bfloat16, False),
+    ("decode8", 8, 8, 2048, torch.bfloat16, False),
+    ("ragged", 4099, 8, 2048, torch.bfloat16, False),
+)
+
+
+def dropless_combines(dev) -> int:
+    """moe_combine launches in one forward of OLMoE-1B-7B-0924 at its 16
+    layers and a small width (bf16, 2 prompts of 64 tokens) on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_combine.ops import moe_combine
+    from repro_torch.models import lm
+    from repro_torch.models.common import tree_map
+    cfg = dataclasses.replace(
+        get_config("olmoe-1b-7b-0924"), d_model=128, n_heads=4, n_kv_heads=4,
+        head_dim=32, n_experts=8, top_k=2, moe_d_ff=64, d_ff=64,
+        vocab_size=300, vocab_pad_multiple=16)
+    params = tree_map(lambda a: a.to(dev), lm.init_model(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    tokens = torch.randint(0, 300, (2, 64), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    before = moe_combine.launches
+    with torch.no_grad():
+        logits = lm.lm_logits(params, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    return moe_combine.launches - before
+
+
+def check_moe_combine(dev):
+    """The dropless MoE's combine kernel against its plain version (the
+    float32 product and the scatter-add by atomics) at each shape of
+    MOE_COMBINE_CASES, an expert given no rows: bit for bit the plain sum
+    in choice order (the kernel's own arithmetic), the positions the
+    inverse of the order, two launches equal, and against the plain
+    version every element within ``allowed_error`` (one ulp where a
+    token's terms do not cancel) and at least 99% bitwise equal; at the
+    cell's shape the wrapper's CUDA-event time, the kernel's own device
+    time, the plain version's and the bytes bound (the T k bf16 rows and
+    float32 weights read, the T rows written once).  No single PyTorch
+    call computes this function.  Then one forward of the dropless model,
+    one launch a layer."""
+    from repro_torch.kernels.moe_combine import ops as combine_ops
+    from repro_torch.kernels.moe_combine.ops import moe_combine
+    from repro_torch.kernels.moe_combine.ref import (allowed_error,
+                                                     combine_in_choice_order,
+                                                     moe_combine_ref,
+                                                     positions_ref)
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    for label, tokens, k, d, dtype, timed in MOE_COMBINE_CASES:
+        logits = torch.randn(tokens, 64, device=dev, generator=g)
+        logits[:, 5] = -1e9                      # an expert with no rows
+        top = torch.sort(logits, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+        weights = torch.softmax(logits, -1).gather(-1, top)
+        _, order = torch.sort(top.reshape(-1), stable=True)
+        y = torch.randn(tokens * k, d, device=dev, generator=g).to(dtype)
+        before = moe_combine.launches
+        with torch.no_grad():
+            got, pos = combine_ops._launch(y, order, weights)
+            again = moe_combine(y, order, weights)
+        want = moe_combine_ref(y, order, weights)
+        torch.cuda.synchronize()
+        assert moe_combine.launches == before + 2, label
+        assert torch.equal(got, again), label
+        assert torch.equal(pos, positions_ref(order)), label
+        assert torch.equal(got, combine_in_choice_order(y, pos, weights)), \
+            label
+        u = ulps(got, want)
+        worst, equal = int(u.max()), float((u == 0).float().mean())
+        beyond = int((u > 1).sum())
+        share = float(((got.float() - want.float()).abs() / allowed_error(
+            y, pos, weights, got, want)).max())
+        assert share <= 1 and equal >= 0.99, (label, share, equal)
+        rec = {"label": label, "shape": [tokens, k, d],
+               "dtype": str(dtype)[6:], "max_ulps": worst,
+               "bitwise_share": equal, "beyond_one_ulp": beyond,
+               "max_share_of_allowed": share}
+        del again, want, u
+        msg = ""
+        if timed:
+            call = lambda: moe_combine(y, order, weights)  # noqa: E731
+            with torch.no_grad():
+                ms = time_ms(call, 50)
+                own = own_time(call, 20, "moe_combine_kernel")
+                plain_ms = time_ms(
+                    lambda: moe_combine_ref(y, order, weights), 10)
+            assert own["kernels"] and all("moe_combine" in n
+                                          for n in own["kernels"]), own
+            item = y.element_size()
+            b, by = bound_ms(tokens * k * d * item + 4 * tokens * k
+                             + tokens * d * item, 2.0 * tokens * k * d)
+            rec.update(ms=ms, device_ms=own["main_device_ms"],
+                       positions_ms=own["device_ms"] - own["main_device_ms"],
+                       plain_ms=plain_ms, bound_ms=b, bound_by=by)
+            msg = (f"; kernel {ms:.4f} ms (own device time "
+                   f"{own['main_device_ms']:.4f} ms, the positions "
+                   f"{rec['positions_ms']:.4f} ms), plain {plain_ms:.4f} ms, "
+                   f"bound {b:.4f} ms ({by}): "
+                   f"{100 * b / own['main_device_ms']:.1f}% of it")
+        log(f"moe_combine[{label}] T {tokens}, k {k}, d {d} "
+            f"{str(dtype)[6:]}: at most {worst} ulp ({beyond} elements "
+            f"beyond one, the largest at {share:.3f} of allowed_error), "
+            f"{100 * equal:.4f}% bitwise equal{msg}")
+        out.append(rec)
+        del y, got, pos, order, weights
+    torch.cuda.empty_cache()
+    forward = dropless_combines(dev)
+    assert forward == 16, forward
+    log(f"moe_combine launches in a forward of the dropless model (16 "
+        f"layers, small width): {forward}")
+    first = out[0]
+    return {"name": "moe_combine", "shape": first["shape"],
+            "max_abs_err": None, "ms": first["ms"],
+            "device_ms": first["device_ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": None, "cases": out,
+            "launches_by_phase": {"dropless_forward": forward}}
 
 
 def check_propagate(dev, n: int, c: int, k: int, n_classes: int = 9):
@@ -2455,6 +2593,68 @@ def run_moe_prefill(dev, cfg, seq: int, compare_len: int, profile,
     return out, params
 
 
+#: moe_prefill_0924's step: the benchmark cell's 8 prompts of 4,096 tokens
+DROPLESS_BATCH, DROPLESS_LEN = 8, 4096
+
+
+def run_dropless_prefill(dev, profile) -> dict:
+    """moe_prefill_0924: OLMoE-1B-7B-0924 at its published widths (all 16
+    layers, 64 experts, top 8, seeded bf16 weights) through
+    ``make_prefill_step`` on the benchmark cell's step of DROPLESS_BATCH x
+    DROPLESS_LEN tokens, after one warm forward: the launch counts reset
+    just before the timed forward, every attention layer on the kernel's
+    tc path and the dropless dispatch's combine one moe_combine launch a
+    layer; finite logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         reset_launches)
+    from repro_torch.kernels.moe_combine.ops import moe_combine
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_config("olmoe-1b-7b-0924")
+    assert cfg.moe_dropless
+    n_moe = cfg.n_repeats * sum(sp.mlp == "moe" for sp in cfg.pattern)
+    n_attn = cfg.n_repeats * sum(sp.mixer == "attn" for sp in cfg.pattern)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, g, device=dev)
+    torch.cuda.synchronize()
+    log(f"moe_prefill_0924 init: {cfg.name}, {cfg.param_count() / 1e9:.3f}B "
+        f"parameters (bf16, seeded), {time.perf_counter() - t0:.2f} s, "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prefill = make_prefill_step(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (DROPLESS_BATCH, DROPLESS_LEN),
+                           device=dev, generator=g)
+    prefill(params, {"tokens": tokens})                 # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    moe_combine.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with Phase("moe_prefill_0924", profile) as ph:
+        logits = prefill(params, {"tokens": tokens})
+    combines, launches = moe_combine.launches, flash_attention.launches
+    paths = dict(flash_attention.launches_by_path)
+    peak = peak_gib()
+    finite = bool(torch.isfinite(logits).all())
+    n = DROPLESS_BATCH * DROPLESS_LEN
+    log(f"phase moe_prefill_0924: {cfg.name}, {DROPLESS_BATCH} x "
+        f"{DROPLESS_LEN} tokens in {ph.seconds:.3f} s ({n / ph.seconds:.1f} "
+        f"tok/s), logits {tuple(logits.shape)} finite={finite}, flash "
+        f"launches {launches} {paths}, moe_combine launches {combines} "
+        f"({n_moe} MoE layers); peak device memory {peak:.2f} GiB")
+    assert logits.shape == (DROPLESS_BATCH, DROPLESS_LEN, cfg.padded_vocab)
+    assert finite
+    assert paths == {"simt": 0, "tc": n_attn, "short": 0}, paths
+    assert combines == n_moe, (combines, n_moe)
+    del logits, params, tokens
+    return {"model": cfg.name, "batch": DROPLESS_BATCH,
+            "tokens": DROPLESS_LEN, "seconds": ph.seconds,
+            "tokens_s": n / ph.seconds, "launches": launches,
+            "launches_by_path": paths, "combine_launches": combines,
+            "peak_gib": peak}
+
+
 def run_moe_decode(dev, cfg, params, profile, steps: int = 16,
                    batch: int = 4, ctx: int = 4096) -> dict:
     """moe_decode: ``steps`` greedy decode steps at batch ``batch`` after
@@ -2735,6 +2935,8 @@ def run_mixers(dev, prefill_len: int, compare_len: int, profile) -> dict:
     out["moe_prefill"] = prefill
     out["moe_decode"] = run_moe_decode(dev, olmoe, params, profile)
     del params
+    free_card()
+    out["moe_prefill_0924"] = run_dropless_prefill(dev, profile)
     free_card()
     out["moe_train"] = run_moe_train(dev, olmoe, MIXER_LEN, 3, profile)
     out["xlstm"] = run_xlstm(dev, MIXER_LEN, profile)
@@ -5410,7 +5612,7 @@ def main(argv=None) -> None:
                          {n: p.stem.split("-")[-1] for n, p in libs.items()})
     log(f"build: {time.perf_counter() - t0:.2f} s ({ptxas_summary(ptxas)})")
     for name in ("flash_attention", "distance_topk", "propagate",
-                 "rmsnorm"):
+                 "rmsnorm", "moe_combine"):
         for fn, regs, spill in ptxas[name]:
             log(f"  ptxas {name} {fn}: {regs} registers, {spill} B spill "
                 f"stores")
@@ -5429,6 +5631,7 @@ def main(argv=None) -> None:
     from repro_torch.kernels.fpf_update.ops import fpf_update
     from repro_torch.kernels.propagate import ops as propagate_ops
     from repro_torch.kernels.propagate.ops import propagate
+    from repro_torch.kernels.moe_combine.ops import moe_combine
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
     dev = torch.device("cuda", 0)
@@ -5442,6 +5645,7 @@ def main(argv=None) -> None:
         check_fpf_update(dev, args.frames, cfg.embed_dim),
         check_propagate(dev, args.frames, cfg.n_reps, cfg.k),
         check_rmsnorm(dev),
+        check_moe_combine(dev),
     ]
     results[0]["checks"] = check_distance_topk_cases(dev, check_rows,
                                                      args.frames)
@@ -5518,6 +5722,7 @@ def main(argv=None) -> None:
     topk_ops.reset_launches()
     propagate_ops.reset_launches()
     rmsnorm.launches = 0
+    moe_combine.launches = 0
     # rmsnorm launches by phase of the main path, in this process (the
     # mesh phases' workers report theirs)
     norms, norm_mark = {}, [0]
@@ -5660,7 +5865,8 @@ def main(argv=None) -> None:
                         args.profile)
     count_norms("mixers")
     mixer_flash = {name: mixers[name]["launches"] for name in (
-        "moe_prefill", "moe_decode", "xlstm", "moe_prefill_qwen3")}
+        "moe_prefill", "moe_decode", "moe_prefill_0924", "xlstm",
+        "moe_prefill_qwen3")}
     mixer_flash["moe_train"] = 0            # asserted in run_moe_train
     launches["flash_attention"] += sum(mixer_flash.values())
     vlm = run_vlm(dev, args.prefill_len, args.compare_len, args.profile)
@@ -5730,13 +5936,23 @@ def main(argv=None) -> None:
         norms[ph.name] = sum(sharded[ph.name]["norms_by_rank"])
     launches["rmsnorm"] = sum(norms.values())
     log(f"rmsnorm launches by phase, the mesh phases' added: {norms}")
+    # moe_prefill_0924 resets the combine's count just before its forward,
+    # and only the dropless MoE reaches the kernel: the capacity dispatch
+    # of the phases after it (qwen3-moe) launches none
+    launches["moe_combine"] = moe_combine.launches
+    combine_phase = mixers["moe_prefill_0924"]["combine_launches"]
+    log(f"moe_combine launches over the main path: {launches['moe_combine']}"
+        f" (moe_prefill_0924's forward: {combine_phase})")
+    assert launches["moe_combine"] == combine_phase == 16, launches
+    results[4]["launches_by_phase"]["moe_prefill_0924"] = combine_phase
 
     sources = {"distance_topk": "src/repro/kernels/distance_topk/kernel.py:77",
                "fpf_update": "src/repro/kernels/fpf_update/kernel.py:34",
                "propagate": "src/repro/kernels/propagate/kernel.py:84",
                "flash_attention":
                    "src/repro/kernels/flash_attention/kernel.py:72",
-               "rmsnorm": None}     # the norm, which XLA fuses
+               "rmsnorm": None,     # the norm, which XLA fuses
+               "moe_combine": None}  # an einsum in the JAX package
     # per kernel path: its timed shape (tc: a, simt: a32, short: b) and its
     # launches over the main path's phases
     by_label = {r["label"]: r for r in flash}

@@ -23,14 +23,17 @@ expert (a stable sort, so that each expert's rows keep token order), the
 per-expert offsets found on the device, the rows gathered into expert
 order, the SwiGLU expert run as grouped products over the experts' jagged
 row counts (``torch._grouped_mm``, with no read-back to the host), and
-each result scaled by its weight and added back to its token in float32,
-cast once.  Every choice is computed.  It runs on one device, forward
-only: the mesh paths and training raise.
+each token's results scaled by their weights and summed in float32, cast
+once (``kernels.moe_combine``: on CUDA one hand-written pass that reads
+each row once, on the CPU the plain scatter-add).  Every choice is
+computed.  It runs on one device, forward only: the mesh paths and
+training raise.
 
 Every ``moe_fwd`` is a span ``moe.forward`` of ``obs.trace`` (one flag
 check with tracing off), with ``tokens``, ``experts`` and ``d2h_bytes``,
 what the layer read back to the host (0 on either path); the dropless
-path adds ``choices`` (T k, every one computed).  Inside
+path adds ``choices`` (T k, every one computed) and ``combine``, the
+version of the combine taken (``"kernel"`` or ``"plain"``).  Inside
 :func:`recorded_routing` each layer also hands over its experts' indices,
 for a check that replays the program's routing.
 """
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, port_option
+from repro_torch.kernels.moe_combine.ops import VERSIONS, moe_combine_route
 from repro_torch.models.common import DTYPES, ParamSpec, PyTree
 from repro_torch.obs import trace
 from repro_torch.parallel import collectives, tensor_parallel
@@ -198,10 +202,10 @@ def _grouped_swiglu(params: PyTree, xs: torch.Tensor,
     return torch._grouped_mm(F.silu(gate) * up, params["wo"], offs=ends)
 
 
-def _dropless(params: PyTree, x: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
+def _dropless(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
+              sp) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D): every (token, choice) through its expert
-    (the module's docstring)."""
+    (the module's docstring); the combine's version is set on ``sp``."""
     b, s, d = x.shape
     xt = x.reshape(-1, d)
     logits = torch.matmul(xt, params["router"]).float()        # (T, E)
@@ -211,12 +215,11 @@ def _dropless(params: PyTree, x: torch.Tensor,
     experts, order = torch.sort(top_idx.reshape(-1), stable=True)
     ends = torch.searchsorted(experts, torch.arange(
         cfg.n_experts, device=x.device), right=True).int()
-    token_of = order // cfg.top_k
-    y = _grouped_swiglu(params, xt.index_select(0, token_of), ends)
-    scaled = y * weights.reshape(-1).index_select(0, order)[:, None]
-    out = torch.zeros(xt.shape, dtype=torch.float32, device=x.device)
-    out.index_add_(0, token_of, scaled)
-    return out.to(x.dtype).reshape(b, s, d)
+    y = _grouped_swiglu(params, xt.index_select(0, order // cfg.top_k),
+                        ends)
+    route = moe_combine_route(y, order, weights)
+    sp.set(combine=route)
+    return VERSIONS[route](y, order, weights).reshape(b, s, d)
 
 
 def moe_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp=None,
@@ -231,12 +234,12 @@ def moe_fwd(params: PyTree, x: torch.Tensor, cfg: ModelConfig, tp=None,
                         d2h_bytes=0):
             return _moe(params, x, cfg, tp, tokens, batch)
     with trace.span("moe.forward", tokens=b * s, choices=b * s * cfg.top_k,
-                    experts=cfg.n_experts, d2h_bytes=0):
+                    experts=cfg.n_experts, d2h_bytes=0) as sp:
         if torch.is_grad_enabled() and (x.requires_grad or any(
                 p.requires_grad for p in params.values())):
             raise NotImplementedError(
                 f"{cfg.name}: the dropless MoE has no training path")
-        return _dropless(params, x, cfg), torch.zeros(
+        return _dropless(params, x, cfg, sp), torch.zeros(
             (), dtype=torch.float32, device=x.device)
 
 

@@ -18,6 +18,14 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.kernels.flash_attention.ref import allowed_error  # noqa: E402
 from repro_torch.kernels.fpf_update.ops import fpf_update  # noqa: E402
 from repro_torch.kernels.fpf_update.ref import fpf_update_ref  # noqa: E402
+from repro_torch.kernels.moe_combine import ops as combine_ops  # noqa: E402
+from repro_torch.kernels.moe_combine.ops import moe_combine  # noqa: E402
+from repro_torch.kernels.moe_combine.ref import (  # noqa: E402
+    allowed_error as combine_allowed_error,
+    combine_in_choice_order,
+    moe_combine_ref,
+    positions_ref,
+)
 from repro_torch.kernels.propagate import ops as propagate_ops  # noqa: E402
 from repro_torch.kernels.propagate.ops import propagate  # noqa: E402
 from repro_torch.kernels.propagate.ref import tie_break_prescale  # noqa: E402
@@ -797,3 +805,120 @@ def test_rmsnorm_kernel_leaves_training_to_the_plain_version(cuda):
     torch.cuda.synchronize()
     assert rmsnorm.launches == before + 2 and empty.shape == (0, 256)
     assert torch.equal(op, got)
+
+
+def _combine_case(cuda, tokens, k, d, dtype, experts=64, seed=0):
+    """A seeded routing of ``tokens`` tokens to ``k`` of ``experts``
+    experts on the card, expert 5 given no rows, sorted as the dropless
+    MoE sorts it; rows y (T k, d) in expert order."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    logits = torch.randn(tokens, experts, device=cuda, generator=g)
+    logits[:, 5] = -1e9
+    top_idx = torch.sort(logits, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+    weights = torch.softmax(logits, -1).gather(-1, top_idx)
+    _, order = torch.sort(top_idx.reshape(-1), stable=True)
+    y = torch.randn(tokens * k, d, device=cuda, generator=g).to(dtype)
+    return y, order, weights
+
+
+@pytest.mark.parametrize("tokens,k,d,dtype", [
+    (32768, 8, 2048, torch.bfloat16),   # OLMoE-1B-7B-0924's step
+    (1, 8, 2048, torch.bfloat16),       # decode
+    (8, 8, 2048, torch.bfloat16),
+    (4099, 8, 2048, torch.bfloat16),    # no block multiple
+    (300, 2, 128, torch.bfloat16),      # narrow rows: several tokens a block
+    (300, 8, 5120, torch.bfloat16),     # rows wider than a block
+    (257, 8, 2048, torch.float16),
+    (257, 8, 1024, torch.float32),
+    (100, 32, 64, torch.float32),       # the most choices
+])
+def test_moe_combine_kernel_matches_plain(cuda, tokens, k, d, dtype):
+    """One launch against the plain version (the scatter-add by atomics):
+    the same rounded products summed in another order, so every element
+    within ``ref.allowed_error`` (one ulp where the terms do not cancel), and
+    in 16 bits at least 99% equal bit for bit; bit for bit the plain
+    sum in choice order, and the positions the inverse of the order; two
+    launches equal bit for bit."""
+    y, order, weights = _combine_case(cuda, tokens, k, d, dtype)
+    assert combine_ops.moe_combine_route(y, order, weights) == "kernel"
+    before = moe_combine.launches
+    got, pos = combine_ops._launch(y, order, weights)
+    again = moe_combine(y, order, weights)
+    want = moe_combine_ref(y, order, weights)
+    torch.cuda.synchronize()
+    assert moe_combine.launches == before + 2
+    assert got.shape == (tokens, d) and got.dtype == dtype
+    assert torch.equal(got, again)
+    assert torch.equal(pos, positions_ref(order))
+    assert torch.equal(got, combine_in_choice_order(y, pos, weights))
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= combine_allowed_error(y, pos, weights, got,
+                                              want)).all())
+    if dtype != torch.float32:
+        assert float((got == want).float().mean()) >= 0.99
+
+
+def test_moe_combine_refuses_an_input_that_needs_a_gradient(cuda):
+    """A CUDA input that needs a gradient raises in the route (the kernel
+    has no backward, and there is no fallback); under no_grad the same
+    input launches; no tokens, no launch."""
+    y, order, weights = _combine_case(cuda, 64, 8, 256, torch.float32)
+    y.requires_grad_()
+    before = moe_combine.launches
+    with pytest.raises(RuntimeError, match="no backward.*plain route"):
+        combine_ops.moe_combine_route(y, order, weights)
+    with pytest.raises(RuntimeError, match="no backward"):
+        moe_combine(y, order, weights.requires_grad_())
+    assert moe_combine.launches == before
+    with torch.no_grad():
+        assert combine_ops.moe_combine_route(y, order, weights) == "kernel"
+        out = moe_combine(y, order, weights)
+        empty = moe_combine(y[:0], order[:0], weights[:0])
+    torch.cuda.synchronize()
+    assert out.grad_fn is None and moe_combine.launches == before + 1
+    assert empty.shape == (0, 256) and moe_combine.launches == before + 1
+
+
+def test_moe_combine_launches_once_a_layer_of_the_dropless_model(cuda):
+    """OLMoE-1B-7B-0924 at its 16 layers and a small width (float32, TF32
+    off) on the card: one launch a layer, each ``moe.forward`` span naming
+    the kernel, the logits beside the CPU's (relative rms; a router tie
+    that the card's sums break otherwise moves a few tokens)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.obs import trace
+    cfg = dataclasses.replace(
+        get_config("olmoe-1b-7b-0924"), d_model=128, n_heads=4, n_kv_heads=4,
+        head_dim=32, n_experts=8, top_k=2, moe_d_ff=64, d_ff=64,
+        vocab_size=300, vocab_pad_multiple=16, dtype="float32",
+        param_dtype="float32")
+    assert cfg.n_layers == 16 and cfg.moe_dropless
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = torch.randint(0, 300, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = lm.lm_logits(params, {"tokens": tokens}, cfg)
+            before = moe_combine.launches
+            since = len(trace.profiled_spans())
+            with profile(activities=[ProfilerActivity.CPU]):
+                got = lm.lm_logits(_tree_to(params, cuda),
+                                   {"tokens": tokens.to(cuda)}, cfg)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert moe_combine.launches == before + cfg.n_layers
+    moes = [s for s in trace.profiled_spans()[since:]
+            if s["name"] == "moe.forward"]
+    assert [s["attrs"]["combine"] for s in moes] == ["kernel"] * 16
+    got, want = got.cpu()[..., :300], want[..., :300]
+    assert float((got - want).pow(2).mean().sqrt()
+                 / want.pow(2).mean().sqrt()) < 1e-2

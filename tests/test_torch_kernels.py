@@ -375,7 +375,7 @@ def test_each_kernel_library_hashes_its_own_source_and_headers(tmp_path,
     monkeypatch.setattr(_build, "CSRC", csrc)
     names = sorted(p.stem for p in csrc.glob("*.cu"))
     assert names == ["distance_topk", "flash_attention", "fpf_update",
-                     "propagate", "rmsnorm"]
+                     "moe_combine", "propagate", "rmsnorm"]
     assert [p.name for p in _build._includes(csrc / "flash_attention.cu")] \
         == ["common.cuh", "hopper.cuh"]
     before = {n: _build.source_hash(n) for n in names}

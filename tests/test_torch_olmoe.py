@@ -209,7 +209,8 @@ def test_moe_forward_span_counts():
     for s in moes:
         assert s["attrs"] == {"tokens": BATCH * SEQ,
                               "choices": BATCH * SEQ * cfg.top_k,
-                              "experts": cfg.n_experts, "d2h_bytes": 0}
+                              "experts": cfg.n_experts, "d2h_bytes": 0,
+                              "combine": "plain"}
 
 
 def test_moe_forward_span_on_the_capacity_path_counts_no_choices():
